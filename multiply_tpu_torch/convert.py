@@ -1,0 +1,88 @@
+"""Carry weights and state across from the JAX package.
+
+Input is the JAX package's parameter pytree and per-person state with every
+leaf already turned into a numpy array (nested dicts and NamedTuples; this
+module imports nothing of JAX). flax kernels are (in, out) with weight-norm
+`g` per output; the port's weights are (out, in), so kernels are transposed.
+
+Port parameter names map to pytree paths as
+  net.<net>.lins.<l>.{weight,bias,g} -> net/<net>/params/lin<l>/{kernel,bias,g}
+  net.fg_render.lin_pose.*           -> net/fg_render/params/lin_pose/*
+  net.frame_latent, net.beta         -> net/frame_latent, net/beta
+  body.<field>                       -> body/<field>
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .body.server import SMPLServer
+from .body.smpl import BodyModel
+from .models.deformer import SMPLDeformer
+from .models.renderer import PersonState
+
+
+def flax_path(name: str) -> tuple[tuple[str, ...], bool]:
+    """(pytree path, whether the leaf is a transposed kernel) of a port parameter."""
+    parts = name.split(".")
+    if parts[0] == "body" or parts[1] in ("frame_latent", "beta"):
+        return tuple(parts), False
+    _, net, *layer, leaf = parts
+    layer = f"lin{layer[1]}" if layer[0] == "lins" else layer[0]
+    return ("net", net, "params", layer, "kernel" if leaf == "weight" else leaf), leaf == "weight"
+
+
+def flax_leaf(tree, name: str) -> np.ndarray:
+    """The pytree leaf (numpy, pytree layout) that port parameter `name` maps to."""
+    for key in flax_path(name)[0]:
+        tree = tree[key] if isinstance(tree, dict) else getattr(tree, key)
+    return np.asarray(tree)
+
+
+def to_flax_layout(name: str, value) -> np.ndarray:
+    """A port parameter (or its gradient) in the layout of its pytree leaf."""
+    value = value.detach().cpu().numpy() if torch.is_tensor(value) else np.asarray(value)
+    return np.swapaxes(value, -1, -2) if flax_path(name)[1] else value
+
+
+def load_params(params: dict, tree) -> None:
+    """Copy the pytree's leaves into the port's named parameters, in place."""
+    with torch.no_grad():
+        for name, p in params.items():
+            value = flax_leaf(tree, name)
+            if flax_path(name)[1]:
+                value = np.swapaxes(value, -1, -2)
+            if value.shape != tuple(p.shape):
+                raise ValueError(f"{name}: pytree leaf {value.shape} vs parameter {tuple(p.shape)}")
+            p.copy_(torch.tensor(np.array(value), dtype=p.dtype))
+
+
+def _t(x, device, dtype=torch.float32):
+    return torch.tensor(np.array(x), dtype=dtype, device=device)
+
+
+def body_model_from_jax(model, device="cuda") -> BodyModel:
+    return BodyModel(
+        *(
+            _t(getattr(model, f), device, torch.int64 if f in ("faces", "extra_joint_idxs") else torch.float32)
+            for f in BodyModel._fields
+        )
+    )
+
+
+def server_from_jax(server, device="cuda") -> SMPLServer:
+    return SMPLServer(
+        body_model_from_jax(server.model, device),
+        *(_t(getattr(server, f), device) for f in SMPLServer._fields[1:]),
+    )
+
+
+def person_state_from_jax(state, device="cuda") -> PersonState:
+    """A stacked JAX PersonState (numpy leaves) -> the port's PersonState."""
+    return PersonState(
+        server=server_from_jax(state.server, device),
+        deformer=SMPLDeformer(*(_t(x, device) for x in state.deformer)),
+        cano_grid={k: _t(v, device) for k, v in state.cano_grid.items()},
+        surface_sample_logits=_t(state.surface_sample_logits, device),
+    )

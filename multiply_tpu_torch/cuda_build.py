@@ -1,0 +1,91 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
+Hopper (`sm_90a`) into `_build/lib<name>.so`, then loaded with `ctypes`. The
+build runs at first use, never at import; `build_all` starts one `nvcc` per
+source at once. A library is rebuilt when its source is newer than it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+import time
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+KERNELS = ("nn1", "grid_trilinear")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: nvcc is needed to build the kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _paths(name: str) -> tuple[str, str]:
+    return os.path.join(CSRC_DIR, f"{name}.cu"), os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _stale(name: str) -> bool:
+    src, out = _paths(name)
+    return not os.path.exists(out) or os.path.getmtime(out) < os.path.getmtime(src)
+
+
+def _start(name: str) -> subprocess.Popen:
+    src, out = _paths(name)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc.out_path, proc.tmp_path = out, tmp
+    return proc
+
+
+def _finish(name: str, proc: subprocess.Popen) -> str:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(proc.tmp_path, proc.out_path)
+    return log
+
+
+def build_all(names=KERNELS) -> tuple[float, dict[str, str]]:
+    """Compile every stale kernel library in parallel: (seconds taken, nvcc's
+    output per kernel built, which holds ptxas's register/shared-memory report)."""
+    t0 = time.perf_counter()
+    with _lock:
+        procs = {n: _start(n) for n in names if _stale(n)}
+        logs = {n: _finish(n, p) for n, p in procs.items()}
+    return time.perf_counter() - t0, logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for kernel `name`, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        if _stale(name):
+            _finish(name, _start(name))
+        lib = ctypes.CDLL(_paths(name)[1])
+        _libs[name] = lib
+        return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C launcher returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")

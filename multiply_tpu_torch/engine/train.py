@@ -1,0 +1,155 @@
+"""The training step with the reference's optimizer-switching schedule.
+
+Counterpart of `multiply_tpu/engine/train.py`:
+  * per-frame mode: joint (shape + pose), pose-only, delayed-pose (body,
+    frame latents and density beta only);
+  * frame-indexed SMPL params read from the optimizable tables;
+  * temporal pose smoothness vs the previous frame (epoch > 250);
+  * a non-finite loss or gradient drops the whole update: params, moments
+    and step counts stay as they were;
+  * MultiStepLR per epoch, Adam eps 1e-8, body params at 0.1x lr.
+
+Parameters are named "net.<renderer param>" and "body.<table field>".
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..body.params import BodyParamTable
+from ..models.loss import LossConfig, total_loss
+from ..models.renderer import MultiplyRenderer, PersonState, RenderInputs
+from .optim import AdamState, adam_init, adam_update, multistep_lr
+
+MODE_JOINT = 0
+MODE_POSE_ONLY = 1
+MODE_DELAYED_POSE = 2  # uncertain frame: body + latents only, shape frozen
+
+SHAPE_NET_KEYS = ("fg_implicit", "fg_render", "bg_implicit", "bg_render")
+
+
+@dataclass
+class TrainState:
+    model: MultiplyRenderer  # the "net" parameters
+    body: BodyParamTable  # stacked over persons
+    opt_joint: AdamState
+    opt_pose: AdamState
+    epoch: int = 0
+
+    def params(self) -> dict:
+        out = {f"net.{k}": p for k, p in self.model.named_parameters()}
+        out.update({f"body.{k}": p for k, p in self.body.named_parameters()})
+        return out
+
+
+@dataclass
+class Batch:
+    """One frame's ray batch."""
+
+    uv: torch.Tensor  # (R, 2)
+    rgb: torch.Tensor  # (R, 3)
+    pose: torch.Tensor  # (4, 4)
+    intrinsics: torch.Tensor  # (3, 3)
+    frame_idx: int
+    smpl_scale: torch.Tensor  # (P,)
+    sam_mask: torch.Tensor | None = None  # (R, P) logits
+    mode: int = MODE_JOINT
+
+
+def make_lr_factors(params: dict, body_factor: float = 0.1) -> dict:
+    return {k: body_factor if k.startswith("body.") else 1.0 for k in params}
+
+
+def _active_masks(params: dict, mode: int) -> dict:
+    """joint: everything. pose-only: body only. delayed: body + frame latents + beta."""
+
+    def active(name: str) -> bool:
+        if name.startswith("body."):
+            return mode in (MODE_JOINT, MODE_POSE_ONLY, MODE_DELAYED_POSE)
+        if mode == MODE_JOINT:
+            return True
+        return mode == MODE_DELAYED_POSE and name.split(".")[1] not in SHAPE_NET_KEYS
+
+    return {k: active(k) for k in params}
+
+
+class TrainStep:
+    def __init__(
+        self,
+        renderer: MultiplyRenderer,
+        person_state: PersonState,
+        loss_cfg: LossConfig,
+        learning_rate: float = 5e-4,
+        sched_milestones: tuple[int, ...] = (200, 500),
+        sched_factor: float = 0.5,
+    ):
+        self.renderer = renderer
+        self.state = person_state
+        self.loss_cfg = loss_cfg
+        self.lr = learning_rate
+        self.milestones = tuple(sched_milestones)
+        self.gamma = sched_factor
+
+    def init_state(self, body_tables: BodyParamTable) -> TrainState:
+        """`body_tables`: the stacked-over-persons table; the renderer's own
+        parameters are the "net" parameters."""
+        ts = TrainState(self.renderer, body_tables, None, None, 0)
+        params = ts.params()
+        ts.opt_joint = adam_init(params)
+        ts.opt_pose = adam_init({k: p for k, p in params.items() if k.startswith("body.")})
+        return ts
+
+    def _pose_step_losses(self, *args, **kwargs):
+        raise NotImplementedError("the pose-opt step losses are not ported yet")
+
+    def forward_loss(self, ts: TrainState, batch: Batch, noise=None, generator=None):
+        """(loss, logs) of one batch, differentiable w.r.t. `ts.params()`."""
+        body, idx = ts.body, batch.frame_idx
+        thetas = body.thetas(idx)  # (P, 72)
+        inputs = RenderInputs(
+            uv=batch.uv, pose=batch.pose, intrinsics=batch.intrinsics,
+            scale=batch.smpl_scale, transl=body.transl[:, idx], thetas=thetas,
+            betas=body.betas[:, 0], frame_idx=idx, epoch=ts.epoch,
+        )
+        out = ts.model.render(self.state, inputs, train=True, noise=noise, generator=generator)
+        if ts.epoch > 250:
+            out["temporal_loss"] = ((body.thetas(max(idx - 1, 0)) - thetas) ** 2).mean()
+        loss, logs = total_loss(self.loss_cfg, out, batch.rgb, ts.epoch, sam_mask_logits=batch.sam_mask)
+        return loss, logs
+
+    def loss_and_grads(self, ts: TrainState, batch: Batch, noise=None, generator=None):
+        """(loss, logs, grads): grads by parameter name, zeros where unused."""
+        params = ts.params()
+        loss, logs = self.forward_loss(ts, batch, noise, generator)
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = {
+            k: torch.zeros_like(p) if g is None else g
+            for (k, p), g in zip(params.items(), grads)
+        }
+        return loss, logs, grads
+
+    def step(self, ts: TrainState, batch: Batch, noise=None, generator=None, pose_batch=None):
+        """One optimization step; updates `ts` in place and returns (ts, logs)."""
+        if pose_batch is not None:
+            self._pose_step_losses(ts, batch, pose_batch)
+        loss, logs, grads = self.loss_and_grads(ts, batch, noise, generator)
+        finite = torch.isfinite(loss) & torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
+        lr_now = multistep_lr(self.lr, ts.epoch, self.milestones, self.gamma)
+        if bool(finite):  # otherwise drop the whole update, optimizer state included
+            params = ts.params()
+            masks = _active_masks(params, batch.mode)
+            joint = {k: a and batch.mode != MODE_POSE_ONLY for k, a in masks.items()}
+            ts.opt_joint = adam_update(
+                grads, ts.opt_joint, params, lr_now, make_lr_factors(params), joint
+            )
+            body = {k: p for k, p in params.items() if k.startswith("body.")}
+            pose = {k: masks[k] and batch.mode == MODE_POSE_ONLY for k in body}
+            ts.opt_pose = adam_update(
+                grads, ts.opt_pose, body, lr_now, {k: 0.1 for k in body}, pose
+            )
+        logs = {k: v.detach() if torch.is_tensor(v) else v for k, v in logs.items()}
+        logs["lr"] = lr_now
+        logs["update_skipped"] = 0.0 if bool(finite) else 1.0
+        return ts, logs

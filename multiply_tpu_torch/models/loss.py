@@ -1,0 +1,152 @@
+"""Training losses with epoch-keyed schedules.
+
+Counterpart of `multiply_tpu/models/loss.py` for the terms the training step
+uses: L1 RGB, eikonal, BCE opacity (with the clamp before the logs),
+in-shape, SAM instance-mask clip loss and temporal pose smoothness. Masked
+means replace boolean indexing so every term keeps a fixed shape. The
+SMPL-surface, zero-pose and depth-order terms are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class LossConfig(NamedTuple):
+    eikonal_weight: float = 0.1
+    bce_weight: float = 5e-3
+    opacity_sparse_weight: float = 3e-3
+    in_shape_weight: float = 1e-2
+    sam_mask_weight: float = 3e-2
+    smpl_surface_weight: float = 0.0
+    zero_pose_weight: float = 0.0
+    temporal_loss_weight: float = 1.0
+    sam_start_epoch: int = 200
+    increase_sam: bool = False
+    milestone: int = 200
+    smpl_surface_milestone: int = 800
+    depth_loss_milestone: int = 1000
+    zero_pose_milestone: int = 1000
+    depth_order_weight: float = 0.005
+    silhouette_weight: float = 0.0
+    interpenetration_weight: float = 0.0
+    eps: float = 1e-6
+
+    @staticmethod
+    def from_config(opt) -> "LossConfig":
+        return LossConfig(
+            eikonal_weight=opt.eikonal_weight,
+            bce_weight=opt.bce_weight,
+            opacity_sparse_weight=opt.opacity_sparse_weight,
+            in_shape_weight=opt.in_shape_weight,
+            sam_mask_weight=opt.sam_mask_weight,
+            smpl_surface_weight=opt.get("smpl_surface_weight", 0),
+            zero_pose_weight=opt.get("zero_pose_weight", 0),
+            temporal_loss_weight=opt.get("temporal_loss_weight", 1.0),
+            sam_start_epoch=opt.get("sam_start_epoch", 200),
+            increase_sam=bool(opt.get("increase_sam", False)),
+            milestone=opt.get("milestone", 200),
+            smpl_surface_milestone=opt.get("smpl_surface_milestone", 800),
+            depth_loss_milestone=opt.get("depth_loss_milestone", 1000),
+            zero_pose_milestone=opt.get("zero_pose_milestone", 1000),
+            depth_order_weight=opt.get("depth_order_weight", 0.005),
+            silhouette_weight=opt.get("silhouette_weight", 0.0),
+            interpenetration_weight=opt.get("interpenetration_loss_weight", 0.0),
+        )
+
+
+def _zero(like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=like.dtype, device=like.device)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean over masked entries; 0 when the mask is empty."""
+    s = torch.where(mask, x, torch.zeros_like(x)).sum()
+    n = mask.sum()
+    return torch.where(n > 0, s / n.clamp_min(1), _zero(s))
+
+
+def rgb_l1(rgb_values: torch.Tensor, rgb_gt: torch.Tensor) -> torch.Tensor:
+    """L1 with per-pixel non-finite filtering."""
+    finite = torch.isfinite(rgb_values).all(-1, keepdim=True)
+    zero = torch.zeros_like(rgb_values)
+    err = (torch.where(finite, rgb_values, zero) - torch.where(finite, rgb_gt, zero)).abs()
+    return masked_mean(err, finite.expand_as(err))
+
+
+def eikonal(grad_theta: torch.Tensor) -> torch.Tensor:
+    return ((grad_theta.norm(dim=-1) - 1.0) ** 2).mean()
+
+
+def bce_opacity(acc_map: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Entropy sharpening of accumulated opacity. acc is clamped to [0, 1]
+    before the logs: composite rounding can push it past 1, and a NaN there
+    would poison every gradient upstream (masking the value does not stop it)."""
+    a = acc_map.clamp(0.0, 1.0)
+    loss = -(a * torch.log(a + eps) + (1 - a) * torch.log(1 - a + eps)).mean() * 2
+    return torch.where(torch.isfinite(loss), loss, _zero(loss))
+
+
+def in_shape(acc_map: torch.Tensor, index_in_surface: torch.Tensor) -> torch.Tensor:
+    """Pull opacity toward 1 on rays through the SMPL interior."""
+    loss = masked_mean((acc_map - 1.0).abs(), index_in_surface)
+    return torch.where(torch.isfinite(loss), loss, _zero(loss))
+
+
+def sam_mask_clip(sam_mask_logits: torch.Tensor, acc_person: torch.Tensor) -> torch.Tensor:
+    """Per-person opacity vs sigmoid(SAM logits), skipping pixels where both
+    confidently agree, normalized by pixels x persons."""
+    n_pix, n_person = sam_mask_logits.shape
+    sam = torch.sigmoid(sam_mask_logits)
+    valid = (sam.sum(1) <= 1.0 + 1e-2)[:, None]
+    min_min = (acc_person < 0.04) & (sam < 0.04)
+    max_max = (acc_person > 0.96) & (sam > 0.96)
+    clip = ~(min_min | max_max) & valid
+    diff = (acc_person - sam).abs()
+    return torch.where(clip, diff, torch.zeros_like(diff)).sum() / (n_pix * n_person)
+
+
+def total_loss(cfg: LossConfig, outputs: dict, rgb_gt: torch.Tensor, epoch: int,
+               sam_mask_logits: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+    """Combine all terms with the reference's epoch schedules."""
+    if cfg.smpl_surface_weight or cfg.zero_pose_weight:
+        raise NotImplementedError("the SMPL-surface and zero-pose terms are not ported yet")
+    epoch = float(epoch)
+    rgb_loss = rgb_l1(outputs["rgb_values"], rgb_gt)
+    zero = _zero(rgb_loss)
+    eik_loss = eikonal(outputs["grad_theta"])
+    bce_loss = bce_opacity(outputs["acc_map"], cfg.eps)
+    opacity_sparse_loss = zero  # disabled in the reference
+
+    in_shape_loss = zero
+    if outputs.get("index_in_surface") is not None and epoch < 250:
+        in_shape_loss = in_shape(outputs["acc_map"], outputs["index_in_surface"])
+
+    curr = min(float(cfg.milestone), epoch)
+    temporal_loss = outputs.get("temporal_loss", zero)
+    sam_loss = zero
+    if sam_mask_logits is not None and epoch >= cfg.sam_start_epoch:
+        sam_loss = sam_mask_clip(sam_mask_logits, outputs["acc_person_list"])
+    increase = min(1.0, epoch / 100.0) if cfg.increase_sam else 1.0
+
+    loss = (
+        rgb_loss
+        + cfg.eikonal_weight * eik_loss
+        + cfg.bce_weight * bce_loss
+        + cfg.opacity_sparse_weight * (1 + curr**2 / 40) * opacity_sparse_loss
+        + cfg.in_shape_weight * (1 - curr / cfg.milestone) * in_shape_loss
+        + temporal_loss * cfg.temporal_loss_weight
+        + cfg.sam_mask_weight * sam_loss * increase
+    )
+    return loss, {
+        "loss": loss,
+        "rgb_loss": rgb_loss,
+        "eikonal_loss": eik_loss,
+        "bce_loss": bce_loss,
+        "opacity_sparse_loss": opacity_sparse_loss,
+        "in_shape_loss": in_shape_loss,
+        "temporal_loss": temporal_loss,
+        "sam_mask_loss": sam_loss,
+    }

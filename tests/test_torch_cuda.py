@@ -1,0 +1,140 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`: they skip where there is no NVIDIA GPU (the kernels are CUDA
+C++ with no CPU mode). This file imports nothing of JAX, so on a machine with
+a card and no JAX it runs alone:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from multiply_tpu_torch.ops import grid_cuda, knn_cuda
+
+
+def _grid_case(seed, res, n):
+    rng = np.random.default_rng(seed)
+    grid = rng.standard_normal((res, res, res)).astype(np.float32)
+    origin = np.array([-0.6, -1.1, -0.4], np.float32)
+    spacing = np.array([0.08, 0.11, 0.05], np.float32) * 16 / res
+    hi = origin + spacing * (res - 1)
+    pts = (origin - 0.2 * (hi - origin) + rng.random((n, 3)) * 1.4 * (hi - origin)).astype(np.float32)
+    return grid, pts, origin, spacing
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels are CUDA C++ with no interpret mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n,v", [(2, 65536, 386), (1, 65536, 6890), (1, 1000, 7)])
+def test_nn1_kernel_matches_plain_on_card(cuda_device, p, n, v):
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    q = torch.randn((p, n, 3), generator=gen, device=cuda_device)
+    r = torch.randn((p, v, 3), generator=gen, device=cuda_device)
+    launches = knn_cuda.nn1.launches
+    d2_k, idx_k = knn_cuda.nn1(q, r)
+    d2_p, idx_p = knn_cuda.nn1_plain(q, r)
+    torch.cuda.synchronize()
+    assert knn_cuda.nn1.launches == launches + 1
+    # the kernel rounds exactly as the plain version (no fused multiply-add)
+    assert torch.equal(d2_k, d2_p) and torch.equal(idx_k, idx_p)
+
+
+@pytest.mark.cuda
+def test_grid_trilinear_kernel_matches_plain_on_card(cuda_device):
+    cases = [_grid_case(s, res=64, n=49664) for s in (5, 6)]
+    args = [torch.tensor(np.stack(x), device=cuda_device) for x in zip(*cases)]
+    got = grid_cuda.grid_trilinear(*args)
+    want = grid_cuda.grid_trilinear_plain(*args)
+    torch.cuda.synchronize()
+    # f32 both; the kernel may contract the lerps into fused multiply-adds
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_what_they_do_not_take(cuda_device):
+    q = torch.zeros((8, 3), device=cuda_device)
+    r = torch.zeros((4, 3), device=cuda_device)
+    with pytest.raises(TypeError):
+        knn_cuda.nn1(q.double(), r.double())
+    with pytest.raises(ValueError):
+        knn_cuda.nn1(torch.zeros((3, 8), device=cuda_device).T, r)  # not contiguous
+    with pytest.raises(ValueError):
+        knn_cuda.nn1(q, r.cpu())
+    g = torch.zeros((4, 4, 4), device=cuda_device)
+    o = torch.zeros(3, device=cuda_device)
+    with pytest.raises(ValueError):
+        grid_cuda.grid_trilinear(g, q[None], o, o)  # batched points, unbatched grid
+
+
+def _small_conf():
+    from multiply_tpu_torch.config import Config
+
+    dims = [64] * 4
+    return Config({
+        "dim_frame_encoding": 32,
+        "implicit_network": {"feature_vector_size": 256, "d_in": 3, "d_out": 1, "dims": dims,
+                             "init": "geometry", "bias": 0.6, "skip_in": [2], "weight_norm": True,
+                             "multires": 6, "cond": "smpl", "scene_bounding_sphere": 3.0},
+        "rendering_network": {"feature_vector_size": 256, "mode": "pose_no_view", "d_in": 14,
+                              "d_out": 3, "dims": [64, 64], "weight_norm": True, "multires_view": -1},
+        "bg_implicit_network": {"feature_vector_size": 256, "d_in": 4, "d_out": 1, "dims": dims,
+                                "init": "none", "bias": 0.0, "skip_in": [], "weight_norm": False,
+                                "multires": 10, "cond": "frame"},
+        "bg_rendering_network": {"feature_vector_size": 256, "mode": "nerf_frame_encoding", "d_in": 3,
+                                 "d_out": 3, "dims": [128], "weight_norm": False, "multires_view": 4},
+        "density": {"params_init": {"beta": 0.1}, "beta_min": 1e-4},
+        "ray_sampler": {"near": 0.0, "eps": 0.1, "add_tiny": 1e-6, "N_samples": 16, "N_samples_eval": 32,
+                        "N_samples_extra": 8, "beta_iters": 5, "max_total_iters": 3,
+                        "N_samples_inverse_sphere": 8},
+    })
+
+
+@pytest.mark.cuda
+def test_training_step_on_card_matches_cpu(cuda_device):
+    """The whole step through both kernels on the card against the same step
+    on the CPU (plain versions), from the same weights and noise."""
+    from multiply_tpu_torch.body.params import BodyParamTable
+    from multiply_tpu_torch.data.synthetic import make_scene, sample_rays
+    from multiply_tpu_torch.engine.train import Batch, TrainStep
+    from multiply_tpu_torch.models.loss import LossConfig
+    from multiply_tpu_torch.models.renderer import MultiplyRenderer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for dev in ("cpu", cuda_device):
+        scene = make_scene(num_frames=2, num_persons=2, height=24, width=32, device=dev)
+        renderer = MultiplyRenderer(_small_conf(), 2, 2, generator=torch.Generator().manual_seed(0),
+                                    device="cpu").to(dev)
+        state = renderer.build_person_state(scene.servers, grid_res=16)
+        builder = TrainStep(renderer, state, LossConfig(sam_start_epoch=0))
+        ts = builder.init_state(BodyParamTable.stack([
+            BodyParamTable.create(2, scene.betas[p], scene.poses[:, p, :3], scene.transl[:, p],
+                                  scene.poses[:, p, 3:], device=dev) for p in range(2)]))
+        ts.epoch = 30
+        rays = sample_rays(scene, 1, 64, np.random.default_rng(0))
+        batch = Batch(*(torch.as_tensor(x, device=dev) for x in (
+            rays["uv"], rays["rgb"], scene.cam_pose[1], scene.intrinsics)), frame_idx=1,
+            smpl_scale=torch.as_tensor(scene.scale, device=dev),
+            sam_mask=torch.as_tensor(rays["sam"], device=dev))
+        if dev == "cpu":  # one draw, on the CPU, for both legs
+            cpu_noise = renderer.draw_noise(64, 386, torch.Generator().manual_seed(1))
+        noise = {k: v.to(dev) for k, v in cpu_noise.items()}
+        launches = (knn_cuda.nn1.launches, grid_cuda.grid_trilinear.launches)
+        loss, logs, grads = builder.loss_and_grads(ts, batch, noise=noise)
+        counted = (knn_cuda.nn1.launches - launches[0], grid_cuda.grid_trilinear.launches - launches[1])
+        out[str(dev)] = (float(loss.detach()), {k: g.cpu() for k, g in grads.items()}, counted)
+    (l_cpu, g_cpu, n_cpu), (l_gpu, g_gpu, n_gpu) = out["cpu"], out[str(cuda_device)]
+    # nn1: 2 sampler evals in round 0 + 1 per later round, render inverse, Jacobian rows
+    assert n_cpu == (0, 0) and n_gpu == (_small_conf().ray_sampler.max_total_iters + 3, 1)
+    # f32 on both; GEMMs and reductions sum in another order on the card
+    assert abs(l_cpu - l_gpu) <= 1e-5 * abs(l_cpu)
+    for k in g_cpu:
+        err = (g_cpu[k] - g_gpu[k]).abs().max().item()
+        assert err <= 1e-2 * g_cpu[k].abs().max().item() + 1e-9, k
