@@ -4,20 +4,27 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 Hopper (`sm_90a`) into `_build/lib<name>.so`, then loaded with `ctypes`. The
 build runs at first use, never at import; `build_all` starts one `nvcc` per
 source at once. A library is rebuilt when its source is newer than it.
+`VARIANTS` names further libraries built from a kernel's source with extra
+flags; they serve checks and measurements, not the port's paths.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import subprocess
 import threading
 import time
 
+import torch
+
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 KERNELS = ("nn1", "grid_trilinear")
+# library name -> (source name, extra nvcc flags)
+VARIANTS = {"nn1_exact": ("nn1", ("-DNN1_EXACT_ROUNDING",))}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,7 +43,8 @@ def _nvcc() -> str:
 
 
 def _paths(name: str) -> tuple[str, str]:
-    return os.path.join(CSRC_DIR, f"{name}.cu"), os.path.join(BUILD_DIR, f"lib{name}.so")
+    source = VARIANTS[name][0] if name in VARIANTS else name
+    return os.path.join(CSRC_DIR, f"{source}.cu"), os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
 def _stale(name: str) -> bool:
@@ -48,7 +56,8 @@ def _start(name: str) -> subprocess.Popen:
     src, out = _paths(name)
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    extra = VARIANTS[name][1] if name in VARIANTS else ()
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", tmp, src]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     proc.out_path, proc.tmp_path = out, tmp
     return proc
@@ -83,6 +92,22 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_paths(name)[1])
         _libs[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def launcher(name: str, function: str, argtypes: tuple):
+    """The C function `function` of library `name`, typed once; it returns a
+    cudaError as an int (see `check`)."""
+    fn = getattr(load(name), function)
+    fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+    return fn
+
+
+def current_stream(device) -> int:
+    """The raw handle of PyTorch's current stream on `device`, for a C launcher.
+    `torch.cuda.current_stream(device).cuda_stream` gives the same number but
+    builds a Stream object first, which takes microseconds on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err: int, name: str) -> None:

@@ -314,10 +314,10 @@ class MultiplyRenderer(nn.Module):
 
     def _training_extras(self, state: PersonState, inputs, pout, cond_vec, noise):
         """In/off-surface tests against the baked canonical grid, and eikonal gradients."""
-        P, (R, S) = self.P, pout["sdf"].shape[1:]
+        S = pout["sdf"].shape[-1]
         g = state.cano_grid
-        d = grid_trilinear(g["grid"], pout["x_c"].detach(), g["origin"], g["spacing"])
-        dmin = d.reshape(P, R, S).min(-1).values
+        # least canonical distance along each ray, (P, R): one launch on the card
+        dmin = grid_trilinear(g["grid"], pout["x_c"].detach(), g["origin"], g["spacing"], group=S)
         off_p = (dmin > self.threshold) | ~pout["hit"]  # non-hitting rays: off, not in
         in_p = (dmin <= 0.0) & pout["hit"]
 

@@ -3,7 +3,10 @@
 Counterpart of `multiply_tpu/ops/knn_pallas.py::nn1_pallas`. The kernel is
 `csrc/nn1.cu` (its header says what bounds it and how it is laid out).
 `nn1` dispatches by device only: a CPU tensor goes to `nn1_plain`, a CUDA
-tensor to the kernel, which raises on what it does not take.
+tensor to the kernel, which raises on what it does not take. The kernel rounds
+the distance with fused multiply-adds, so on the card `d2` agrees with the
+plain version to 1e-6 relative, and an index can differ only where two
+references tie that closely.
 """
 
 from __future__ import annotations
@@ -29,18 +32,14 @@ def nn1_plain(query: torch.Tensor, refs: torch.Tensor, chunk_size: int = 8192):
     return torch.cat(d2s, dim=-2).clamp_min(0.0), torch.cat(idxs, dim=-2)
 
 
-def _lib():
-    lib = cuda_build.load("nn1")
-    if not getattr(lib, "_typed", False):
-        vp = ctypes.c_void_p
-        lib.nn1_launch.argtypes = [vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp]
-        lib.nn1_launch.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+_VP = ctypes.c_void_p
+_ARGTYPES = (_VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP)
 
 
-def nn1_kernel(query: torch.Tensor, refs: torch.Tensor):
-    """Launch `csrc/nn1.cu` on (N, 3)/(V, 3) or (P, N, 3)/(P, V, 3) CUDA tensors."""
+def nn1_kernel(query: torch.Tensor, refs: torch.Tensor, exact: bool = False):
+    """Launch `csrc/nn1.cu` on (N, 3)/(V, 3) or (P, N, 3)/(P, V, 3) CUDA tensors:
+    one kernel and nothing else. `exact` takes the build that rounds the
+    distance as `nn1_plain` does (bit-identical to it, and slower): for checks."""
     if not (query.is_cuda and refs.is_cuda and query.device == refs.device):
         raise ValueError("nn1 kernel needs both tensors on the same CUDA device")
     if query.dtype != torch.float32 or refs.dtype != torch.float32:
@@ -55,16 +54,18 @@ def nn1_kernel(query: torch.Tensor, refs: torch.Tensor):
     if V == 0:
         raise ValueError("nn1 kernel needs at least one reference point")
     P = query.shape[0] if query.dim() == 3 else 1
-    d2 = torch.empty(query.shape[:-1], dtype=torch.float32, device=query.device)
-    idx = torch.empty(query.shape[:-1], dtype=torch.int32, device=query.device)
+    shape = query.shape[:-1] + (1,)
+    d2 = query.new_empty(shape)
+    idx = torch.empty(shape, dtype=torch.int64, device=query.device)
     if N > 0:
-        err = _lib().nn1_launch(
+        launch = cuda_build.launcher("nn1_exact" if exact else "nn1", "nn1_launch", _ARGTYPES)
+        err = launch(
             query.data_ptr(), refs.data_ptr(), d2.data_ptr(), idx.data_ptr(),
-            P, N, V, torch.cuda.current_stream(query.device).cuda_stream,
+            P, N, V, cuda_build.current_stream(query.device),
         )
         cuda_build.check(err, "nn1")
         nn1.launches += 1
-    return d2.clamp_min(0.0)[..., None], idx[..., None].long()
+    return d2, idx
 
 
 def nn1(query: torch.Tensor, refs: torch.Tensor):

@@ -91,12 +91,18 @@ def query_skinning_weights(
     """Detached nearest-vertex skinning weights (..., N, J) + outlier mask (..., N)."""
     with torch.no_grad():
         pts, verts = pts.detach().contiguous(), verts.detach().contiguous()
-        d2, idx = nn1(pts, verts) if k == 1 else knn(pts, verts, k=k)
-        d2 = d2.clamp_max(DIST_CLAMP)
-        conf = torch.exp(-d2)
-        conf = conf / conf.sum(-1, keepdim=True)
-        w = _take_rows(smpl_weights.detach(), idx)  # (..., N, k, J)
-        weights = (w * conf[..., None]).sum(-2)
+        if k == 1:
+            # one neighbour: its confidence exp(-d2) / exp(-d2) is exactly 1.0 (d2 is
+            # clamped to <= 4, so the exponential is never 0), and the clamp cannot
+            # move sqrt(d2) across OUTLIER_DIST
+            d2, idx = nn1(pts, verts)
+            weights = _take_rows(smpl_weights.detach(), idx)[..., 0, :]
+        else:
+            d2, idx = knn(pts, verts, k=k)
+            d2 = d2.clamp_max(DIST_CLAMP)
+            conf = torch.exp(-d2)
+            conf = conf / conf.sum(-1, keepdim=True)
+            w = _take_rows(smpl_weights.detach(), idx)  # (..., N, k, J)
+            weights = (w * conf[..., None]).sum(-2)
         outlier = torch.sqrt(d2[..., 0]) > OUTLIER_DIST
     return weights, outlier
-

@@ -154,3 +154,26 @@ def test_skinning_weights_are_detached():
     w, outlier = sk.query_skinning_weights(pts, server.verts_c, server.weights_c.requires_grad_(True))
     assert not w.requires_grad and not outlier.requires_grad
     np.testing.assert_allclose(w.sum(-1).detach().numpy(), 1.0, atol=1e-5)
+
+
+def test_single_neighbour_shortcut_equals_general_formula():
+    """At k = 1 the weights are the nearest vertex's row and the clamp is
+    skipped: bit for bit what the confidence-weighted formula of k > 1 gives
+    for one neighbour, far points (d2 > the clamp) included."""
+    from multiply_tpu_torch.ops.knn_cuda import nn1
+
+    rng = np.random.default_rng(5)
+    server = stack_servers([SMPLServer.create(smpl.synthetic_body_model(device="cpu")) for _ in range(2)])
+    pts = _t((rng.standard_normal((2, 600, 3)) * 0.6).astype(np.float32))
+    pts[:, :20] *= 8.0  # beyond DIST_CLAMP
+    got_w, got_out = sk.query_skinning_weights(pts, server.verts_c, server.weights_c, k=1)
+
+    d2, idx = nn1(pts, server.verts_c)
+    d2 = d2.clamp_max(sk.DIST_CLAMP)
+    conf = torch.exp(-d2)
+    conf = conf / conf.sum(-1, keepdim=True)
+    want_w = (sk._take_rows(server.weights_c, idx) * conf[..., None]).sum(-2)
+    want_out = torch.sqrt(d2[..., 0]) > sk.OUTLIER_DIST
+    assert (d2 == sk.DIST_CLAMP).any() and want_out.any() and not want_out.all()
+    assert torch.equal(got_w, want_w) and torch.equal(got_out, want_out)
+    assert got_w.shape == (2, 600, 24) and got_w.is_contiguous() == want_w.is_contiguous()

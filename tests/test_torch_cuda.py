@@ -32,29 +32,55 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p,n,v", [(2, 65536, 386), (1, 65536, 6890), (1, 1000, 7)])
+@pytest.mark.parametrize("p,n,v", [(2, 65536, 386), (1, 65536, 6890), (1, 1000, 7), (2, 512, 386),
+                                   (1, 3001, 7171), (1, 1, 1)])
 def test_nn1_kernel_matches_plain_on_card(cuda_device, p, n, v):
     gen = torch.Generator(cuda_device).manual_seed(0)
     q = torch.randn((p, n, 3), generator=gen, device=cuda_device)
     r = torch.randn((p, v, 3), generator=gen, device=cuda_device)
+    if v > 6:
+        r[:, 5] = r[:, 2]  # an exact duplicate: the lower index must win
     launches = knn_cuda.nn1.launches
     d2_k, idx_k = knn_cuda.nn1(q, r)
+    d2_e, idx_e = knn_cuda.nn1_kernel(q, r, exact=True)
     d2_p, idx_p = knn_cuda.nn1_plain(q, r)
     torch.cuda.synchronize()
-    assert knn_cuda.nn1.launches == launches + 1
-    # the kernel rounds exactly as the plain version (no fused multiply-add)
-    assert torch.equal(d2_k, d2_p) and torch.equal(idx_k, idx_p)
+    assert knn_cuda.nn1.launches == launches + 2
+    assert d2_k.shape == (p, n, 1) and idx_k.shape == (p, n, 1) and idx_k.dtype == torch.int64
+    # the exactly rounded build has the same tiling and selection and rounds as
+    # the plain version does (no fused multiply-add): bit for bit
+    assert torch.equal(d2_e, d2_p) and torch.equal(idx_e, idx_p)
+    # the kernel on the path contracts the sum of squares into fused multiply-adds,
+    # which moves d2 in the last bit; an index may then differ only where the two
+    # candidates tie that closely, and never between exact duplicates
+    assert ((d2_k - d2_p).abs() <= 1e-6 * d2_p).all() and (d2_k >= 0).all()
+    assert not (idx_k == 5).any() or v <= 6
+    diff = (idx_k != idx_p)[..., 0]
+    if diff.any():
+        chosen = torch.take_along_dim(r, idx_k.expand(p, n, 3), dim=-2)
+        gap = (((q - chosen) ** 2).sum(-1) - d2_p[..., 0]).abs()
+        assert (gap[diff] <= 1e-6 * d2_p[..., 0][diff]).all()
 
 
 @pytest.mark.cuda
-def test_grid_trilinear_kernel_matches_plain_on_card(cuda_device):
+@pytest.mark.parametrize("group", [1, 97, 512])
+def test_grid_trilinear_kernel_matches_plain_on_card(cuda_device, group):
+    """Per point (group 1) and fused with the minimum over each run of `group`
+    points (97: a ray of the training step; 512: more than one stage of a warp)."""
     cases = [_grid_case(s, res=64, n=49664) for s in (5, 6)]
     args = [torch.tensor(np.stack(x), device=cuda_device) for x in zip(*cases)]
-    got = grid_cuda.grid_trilinear(*args)
-    want = grid_cuda.grid_trilinear_plain(*args)
+    got = grid_cuda.grid_trilinear(*args, group=group)
+    want = grid_cuda.grid_trilinear_plain(*args, group=group)
     torch.cuda.synchronize()
+    assert got.shape == want.shape == (2, 49664 // group)
     # f32 both; the kernel may contract the lerps into fused multiply-adds
     assert (got - want).abs().max().item() <= 1e-5
+    # unbatched, and a point count that fills no whole warp stage
+    one = [a[1, :1000] if a.dim() == 3 else a[1] for a in args]
+    one[1] = one[1].contiguous()
+    small = 1 if group == 1 else 8
+    got = grid_cuda.grid_trilinear(*one, group=small)
+    assert (got - grid_cuda.grid_trilinear_plain(*one, group=small)).abs().max().item() <= 1e-5
 
 
 @pytest.mark.cuda
@@ -71,6 +97,15 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda_device):
     o = torch.zeros(3, device=cuda_device)
     with pytest.raises(ValueError):
         grid_cuda.grid_trilinear(g, q[None], o, o)  # batched points, unbatched grid
+    with pytest.raises(ValueError):
+        grid_cuda.grid_trilinear(g.transpose(0, 2), q, o, o)  # grid not contiguous
+    with pytest.raises(ValueError):
+        grid_cuda.grid_trilinear(g, q, o, o, group=3)  # 3 does not divide 8 points
+    with pytest.raises(ValueError):
+        grid_cuda.grid_trilinear(g, q, o, o, group=0)
+    launches = grid_cuda.grid_trilinear.launches
+    assert grid_cuda.grid_trilinear(g, q, o, o, group=4).shape == (2,)
+    assert grid_cuda.grid_trilinear.launches == launches + 1
 
 
 def _small_conf():

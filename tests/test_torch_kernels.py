@@ -114,11 +114,56 @@ def test_grid_trilinear_batched_and_grad_free():
         assert torch.equal(out[p], one)
 
 
+def test_grid_trilinear_fused_min_matches_jax_renderer_path():
+    """group = S against what the JAX renderer does with the per-point values:
+    `grid_query`, then `jnp.min` over each ray's S samples."""
+    R, S = 50, 13
+    grid, pts, origin, spacing = _grid_case(6, n=R * S)
+    got = grid_cuda.grid_trilinear(*(torch.tensor(x) for x in (grid, pts, origin, spacing)), group=S)
+    d = grid_query_jax({"grid": jnp.asarray(grid), "origin": jnp.asarray(origin),
+                        "spacing": jnp.asarray(spacing)}, jnp.asarray(pts)).reshape(R, S)
+    want = jnp.min(d, axis=-1)
+    assert got.shape == (R,) and not got.requires_grad
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    # batched over persons: each person's rays reduced on their own
+    stacked = [torch.tensor(np.stack([x, x])) for x in (grid, pts, origin, spacing)]
+    both = grid_cuda.grid_trilinear(*stacked, group=S)
+    assert both.shape == (2, R) and torch.equal(both[0], got) and torch.equal(both[1], got)
+    # group 1 is the per-point form
+    per_point = grid_cuda.grid_trilinear(*(torch.tensor(x) for x in (grid, pts, origin, spacing)), group=1)
+    assert torch.equal(per_point.reshape(R, S).min(-1).values, got)
+
+
+@pytest.mark.parametrize("group", [4, 0, -1, 2.0])
+def test_grid_trilinear_refuses_a_group_that_does_not_divide(group):
+    args = [torch.tensor(x) for x in _grid_case(7, n=26)]
+    with pytest.raises(ValueError):
+        grid_cuda.grid_trilinear(*args, group=group)
+    with pytest.raises(ValueError):
+        grid_cuda.grid_trilinear_plain(*args, group=group)
+
+
+@pytest.mark.parametrize("n", [1024, 8, 776])
+def test_nn1_plain_output_form_at_the_step_shapes(n):
+    """Small stand-ins for the step's three calls (sampler round, eikonal
+    points, render samples), both persons at once, V = 386."""
+    rng = np.random.default_rng(n)
+    q = torch.tensor(rng.standard_normal((2, n, 3)).astype(np.float32))
+    r = torch.tensor(rng.standard_normal((2, 386, 3)).astype(np.float32))
+    d2, idx = knn_cuda.nn1(q, r)
+    assert d2.shape == idx.shape == (2, n, 1)
+    assert d2.dtype == torch.float32 and idx.dtype == torch.int64
+    assert (d2 >= 0).all() and (idx >= 0).all() and (idx < 386).all()
+    nearest = torch.take_along_dim(r, idx.expand(2, n, 3), dim=1)
+    np.testing.assert_allclose(((q - nearest) ** 2).sum(-1, keepdim=True).numpy(), d2.numpy(), rtol=1e-5)
+
+
 def test_cpu_dispatch_launches_no_kernel():
     q, r = _points(5, 10, 4)
     before = (knn_cuda.nn1.launches, grid_cuda.grid_trilinear.launches)
     knn_cuda.nn1(torch.tensor(q), torch.tensor(r))
     grid_cuda.grid_trilinear(*(torch.tensor(x) for x in _grid_case(4, n=8)))
+    grid_cuda.grid_trilinear(*(torch.tensor(x) for x in _grid_case(4, n=8)), group=4)
     assert (knn_cuda.nn1.launches, grid_cuda.grid_trilinear.launches) == before
     with pytest.raises(ValueError):
         knn_cuda.nn1_kernel(torch.tensor(q), torch.tensor(r))  # CPU tensors never reach the kernel
