@@ -16,17 +16,32 @@ Phases, each fatal on failure:
      `confs/model/taichi01_model.yaml`, weights random from a seed;
   4. kernels: each kernel against its plain PyTorch version on the card at
      the training step's shapes (`grid_trilinear` per point and fused with the
-     per-ray minimum; `nn1` at V = 386 and 6890 and at N = 512, and its exactly
-     rounded build bit for bit), with times of kernel, plain version and a
+     per-ray minimum; `nn1` at V = 386 and 6890, at N = 512 and on the padded
+     meshes that a pose-only step warps, and its exactly rounded build bit for
+     bit), with times of kernel, plain version and a
      PyTorch library yardstick (never called by the port), the wrapper's host
      time, the kernels launched per wrapper call and the card's least time for
      the same work (`bound_ms`);
-  5. training: full-width training steps of 512 rays over different frames
-     with launch counters zeroed just before; asserts finite losses, no
-     skipped update, changed params and the kernels' launch counts; then one
-     full frame rendered in 512-ray chunks and its PSNR.
-Prints the `{"kernels": [...]}` line, then the nvidia-smi line, then
-`{"ok": true, "device": {...}}` as the last line.
+  5. training, parity preset (`taichi01_model.yaml`): full-width training
+     steps of 512 rays over different frames with launch counters zeroed just
+     before; asserts finite losses, no skipped update, changed params and the
+     kernels' launch counts; one profiled step; then one full frame rendered
+     in 512-ray chunks and its PSNR;
+  6. path F, the fast preset (`taichi01_base.yaml` with
+     `model/taichi01_fast_model.yaml`: bfloat16 sampler, box-clipped ray
+     ranges): timed full-width steps and a profiled one, printed beside the
+     parity preset's figures, with the GEMM kernels' device time by name;
+  7. path P, pose-only steps with a `PoseLossBatch` of the synthetic scene
+     (body meshes padded to 8192 faces, 2048 pixels, 5120 interpenetration
+     samples, the two bodies overlapping): asserts the three pose losses are
+     there and not all zero, every `body.*` leaf moved and no `net.*` leaf;
+  8. one full-width step each of the sorted composite, the shared shape net
+     with offset heads and beta encoders, `cond: smpl_tri`, and the
+     multi-resolution tri-plane: finite loss, finite non-zero gradients on
+     each new parameter group.
+Each of the paths 5-7 zeroes the kernels' launch counters just before it and
+reads them just after. Prints the `{"kernels": [...]}` line, then the
+nvidia-smi line, then `{"ok": true, "device": {...}}` as the last line.
 """
 
 import json
@@ -39,8 +54,13 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-STEPS = 11  # step 0 warms up; the rest are timed
+STEPS = 11  # parity preset: step 0 warms up; the rest are timed
+STEPS_FAST = 7  # fast preset: one first step, six timed
+STEPS_POSE = 4  # pose-only: one first step, three timed
 RAYS = 512
+POSE_PIXELS = 2048  # pixels of a pose-loss batch
+MESH_BUCKET = 8192  # vertex and face counts of a pose-loss batch's padded meshes
+INTERP_SAMPLES = 5120  # interpenetration samples per person
 SEED = 0
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
@@ -168,14 +188,17 @@ def sass_inner_loop(lib_path, kernel_substr):
     return best or "no loop found in the SASS"
 
 
-def step_breakdown(step_fn, top=10):
-    """Profile one call of `step_fn`: (wall ms, device-busy ms, top kernels by device time)."""
+def step_breakdown(step_fn, top=10, with_cpu=True):
+    """Profile one call of `step_fn`: (wall ms, device-busy ms, top kernels by
+    device time, kinds of kernel, kernel launches, GEMM kernels). Without
+    `with_cpu` only the card's activity is traced, a much lighter event load."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if with_cpu else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         step_fn()
         torch.cuda.synchronize()
@@ -185,7 +208,163 @@ def step_breakdown(step_fn, top=10):
     kernels.sort(key=lambda e: -e.self_device_time_total)
     ours = [e for e in kernels if "nn1_kernel" in e.key or "grid_trilinear_kernel" in e.key]
     rows = [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in kernels[:top] + ours]
-    return wall, busy, rows, len(kernels), sum(e.count for e in kernels)
+    gemms = [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in kernels
+             if any(t in e.key.lower() for t in ("gemm", "gemv", "xmma", "cutlass"))]
+    return wall, busy, rows, len(kernels), sum(e.count for e in kernels), gemms
+
+
+def gemm_summary(gemms):
+    """(bf16 ms, other ms) of the GEMM kernels of one profiled step, by name."""
+    bf16 = sum(ms for name, ms, _ in gemms if "bf16" in name.lower())
+    return bf16, sum(ms for _, ms, _ in gemms) - bf16
+
+
+def make_batch(scene, f, rng, dev, rays=RAYS, mode=0):
+    import torch
+
+    from multiply_tpu_torch.data.synthetic import sample_rays
+    from multiply_tpu_torch.engine.train import Batch
+
+    r = sample_rays(scene, f, rays, rng)
+    return Batch(
+        uv=torch.as_tensor(r["uv"], device=dev), rgb=torch.as_tensor(r["rgb"], device=dev),
+        pose=torch.as_tensor(scene.cam_pose[f], device=dev),
+        intrinsics=torch.as_tensor(scene.intrinsics, device=dev), frame_idx=f,
+        smpl_scale=torch.as_tensor(scene.scale, device=dev),
+        sam_mask=torch.as_tensor(r["sam"], device=dev), mode=mode,
+    )
+
+
+def body_tables(scene, dev, transl=None):
+    from multiply_tpu_torch.body.params import BodyParamTable
+
+    transl = scene.transl if transl is None else transl
+    n_frames, n_persons = scene.poses.shape[:2]
+    return BodyParamTable.stack([
+        BodyParamTable.create(
+            n_frames, betas=scene.betas[p], global_orient=scene.poses[:, p, :3],
+            transl=transl[:, p], body_pose=scene.poses[:, p, 3:], device=dev,
+        )
+        for p in range(n_persons)
+    ])
+
+
+def pose_loss_batch(scene, f, rng, dev, pixels=POSE_PIXELS, bucket=MESH_BUCKET):
+    """A `PoseLossBatch` of the synthetic scene: each person's canonical body
+    mesh padded to `bucket` vertices and faces (zero vertices, degenerate 0,0,0
+    faces), `pixels` pixels drawn where the instance masks are confident, and
+    the SAM probabilities there."""
+    import numpy as np
+    import torch
+
+    from multiply_tpu_torch.engine.train import PoseLossBatch
+
+    P = len(scene.servers)
+    verts_c = torch.zeros((P, bucket, 3), device=dev)
+    faces = torch.zeros((P, bucket, 3), dtype=torch.int64, device=dev)
+    for p, server in enumerate(scene.servers):
+        v, fc = server.verts_c, server.model.faces
+        verts_c[p, : len(v)], faces[p, : len(fc)] = v, fc
+    probs = 1.0 / (1.0 + np.exp(-scene.sam_logits[f]))
+    total = probs.sum(-1)
+    vy, vx = np.nonzero((total >= 0.7) & (total <= 1.01))
+    assert len(vx) > 0, "no confident pixel in the synthetic frame"
+    sel = rng.choice(len(vx), pixels, replace=len(vx) < pixels)
+    return PoseLossBatch(
+        verts_c=verts_c, faces=faces,
+        uv=torch.as_tensor(np.stack([vx[sel], vy[sel]], -1).astype(np.float32), device=dev),
+        sam_probs=torch.as_tensor(probs[vy[sel], vx[sel]].astype(np.float32), device=dev),
+        scale_to_full=len(vx) / pixels,
+    )
+
+
+def run_steps(name, stepper, ts, batches, gen, pose_batches=None):
+    """Take one step per batch, each timed on the host clock around a
+    synchronise; every log must be finite and no update skipped.
+    Returns (ts, seconds per step, last logs)."""
+    import torch
+
+    step_s = []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, logs = stepper.step(ts, batch, generator=gen,
+                                pose_batch=None if pose_batches is None else pose_batches[i])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        vals = {k: float(v) for k, v in logs.items()}
+        assert all(math.isfinite(v) for v in vals.values()), f"{name} step {i}: non-finite {vals}"
+        assert vals["update_skipped"] == 0.0, f"{name} step {i}: update skipped"
+        extra = "".join(f" {k[5:-5]} {vals[k]:.5f}" for k in vals if k.startswith("pose_") and pose_batches)
+        log(f"{name} step {i} frame {batch.frame_idx}: loss {vals['loss']:.5f} rgb {vals['rgb_loss']:.5f} "
+            f"eik {vals['eikonal_loss']:.5f}{extra} {step_s[-1] * 1e3:.1f} ms")
+    return ts, step_s, vals
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def model_conf_with(conf, **updates):
+    """A copy of a model config; `a__b=v` sets conf["a"]["b"] = v."""
+    from multiply_tpu_torch.config import Config
+
+    data = Config(conf.to_dict()).to_dict()
+    for key, value in updates.items():
+        *path, last = key.split("__")
+        node = data
+        for k in path:
+            node = node[k]
+        node[last] = value
+    return Config(data)
+
+
+VARIANTS = (  # name, config updates, the parameter groups each adds
+    ("sort composite", dict(composite_matmul=False), ()),
+    ("shared net + offset head + beta encoder",
+     dict(use_person_encoder=True, implicit_network__cond="smpl_id", implicit_network__offset_head=True,
+          implicit_network__beta_encoding=True),
+     ("net.person_latent", "net.offset_head.", "net.beta_encoder.")),
+    ("cond smpl_tri", dict(implicit_network__cond="smpl_tri"), ("net.triplane.",)),
+    ("multi_triplane", dict(implicit_network__cond="smpl_tri", implicit_network__multi_triplane=True),
+     ("net.triplane.planes_", "net.triplane.dense.")),
+)
+
+
+def run_variant(name, conf, groups, scene, state, dev, seed, rays=RAYS):
+    """Two full-width steps of one model configuration. The first is timed
+    (the first step of its shapes: printed, not compared). The second step's
+    gradients are read: conditioning that enters through layer 0 is silent at
+    the geometric init (its columns start at zero), so a new group's gradient
+    can be exactly zero on the first step."""
+    import numpy as np
+    import torch
+
+    from multiply_tpu_torch.engine.train import TrainStep
+    from multiply_tpu_torch.models.loss import LossConfig
+    from multiply_tpu_torch.models.renderer import MultiplyRenderer
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    n_frames, n_persons = scene.poses.shape[:2]
+    renderer = MultiplyRenderer(conf, num_persons=n_persons, num_frames=n_frames, generator=gen, device=dev)
+    stepper = TrainStep(renderer, state, LossConfig(sam_start_epoch=0), learning_rate=conf.learning_rate)
+    ts = stepper.init_state(body_tables(scene, dev))
+    torch.cuda.reset_peak_memory_stats()
+    ts, step_s, _ = run_steps(name, stepper, ts, [make_batch(scene, 0, rng, dev, rays)], gen)
+    loss, _, grads = stepper.loss_and_grads(ts, make_batch(scene, 1, rng, dev, rays), generator=gen)
+    torch.cuda.synchronize()
+    assert math.isfinite(float(loss.detach())), f"{name}: non-finite loss"
+    for group in groups:
+        leaves = {k: g for k, g in grads.items() if k.startswith(group)}
+        assert leaves, f"{name}: no parameter named {group}*"
+        assert all(bool(torch.isfinite(g).all()) for g in leaves.values()), f"{name}: non-finite gradient in {group}*"
+        assert all(float(g.abs().max()) > 0 for g in leaves.values()), f"{name}: zero gradient in {group}*"
+    n_params = sum(p.numel() for p in renderer.parameters())
+    log(f"variant {name}: step {step_s[0] * 1e3:.1f} ms (first step of its shapes), {n_params / 1e6:.2f} M net "
+        f"parameters, peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, second loss "
+        f"{float(loss.detach()):.5f}, gradients finite and non-zero on {list(groups) or 'no new group'}")
 
 
 def main() -> int:
@@ -200,10 +379,9 @@ def main() -> int:
     import torch.nn.functional as F
 
     from multiply_tpu_torch import cuda_build
-    from multiply_tpu_torch.body.params import BodyParamTable
     from multiply_tpu_torch.config import load_config
-    from multiply_tpu_torch.data.synthetic import make_scene, sample_rays
-    from multiply_tpu_torch.engine.train import Batch, TrainStep
+    from multiply_tpu_torch.data.synthetic import make_scene
+    from multiply_tpu_torch.engine.train import MODE_POSE_ONLY, TrainStep
     from multiply_tpu_torch.models.loss import LossConfig
     from multiply_tpu_torch.models.renderer import MultiplyRenderer, RenderInputs
     from multiply_tpu_torch.ops import grid_cuda, knn_cuda
@@ -239,16 +417,9 @@ def main() -> int:
     gen = torch.Generator(dev).manual_seed(SEED)
     renderer = MultiplyRenderer(conf, num_persons=P, num_frames=F_, generator=gen, device=dev)
     state = renderer.build_person_state(scene.servers, grid_res=64)
-    builder = TrainStep(renderer, state, LossConfig(sam_start_epoch=0),
+    stepper = TrainStep(renderer, state, LossConfig(sam_start_epoch=0),
                         learning_rate=conf.learning_rate)
-    tables = [
-        BodyParamTable.create(
-            F_, betas=scene.betas[p], global_orient=scene.poses[:, p, :3],
-            transl=scene.transl[:, p], body_pose=scene.poses[:, p, 3:], device=dev,
-        )
-        for p in range(P)
-    ]
-    ts = builder.init_state(BodyParamTable.stack(tables))
+    ts = stepper.init_state(body_tables(scene, dev))
     torch.cuda.synchronize()
     log(f"setup: scene + grid bake (res 64) {time.perf_counter() - t0:.1f} s")
 
@@ -264,11 +435,16 @@ def main() -> int:
         q = lo - 0.3 + (hi - lo + 0.6) * torch.rand((P, n_sampler, 3), generator=kgen, device=dev)
         err_a, nd_a = check_nn1(q, verts, "nn1 P=2 V=386")
         err_a3, nd_a3 = check_nn1(q[:, :RAYS].contiguous(), verts, f"nn1 P=2 N={RAYS} V=386")
+        # what a pose-only step's forward warp hands the kernel: the padded
+        # meshes, most of whose vertices are the same zero padding
+        q_mesh = pose_loss_batch(scene, 0, np.random.default_rng(SEED), dev).verts_c.contiguous()
+        err_a4, nd_a4 = check_nn1(q_mesh, verts, f"nn1 P=2 N={MESH_BUCKET} V=386 (padded pose meshes)")
         refs_big = torch.randn((6890, 3), generator=kgen, device=dev) * 0.4
         q_big = torch.randn((n_sampler, 3), generator=kgen, device=dev) * 0.5
         err_a2, nd_a2 = check_nn1(q_big, refs_big, "nn1 V=6890")
         log(f"nn1: max|d2 err| {err_a:.3g} (V=386, {nd_a} tie swaps), {err_a3:.3g} (N={RAYS}, "
-            f"{nd_a3} tie swaps), {err_a2:.3g} (V=6890, {nd_a2} tie swaps); exact build bit-identical")
+            f"{nd_a3} tie swaps), {err_a4:.3g} (padded pose meshes, N={MESH_BUCKET}, {nd_a4} tie swaps), "
+            f"{err_a2:.3g} (V=6890, {nd_a2} tie swaps); exact build bit-identical")
 
         g = state.cano_grid
         res = g["grid"].shape[-1]
@@ -303,6 +479,7 @@ def main() -> int:
         t_a_lib = cuda_time_ms(
             lambda: torch.cdist(q, verts, compute_mode="donot_use_mm_for_euclid_dist").min(-1), reps=20
         )
+        t_a4 = cuda_time_ms(lambda: knn_cuda.nn1_kernel(q_mesh, verts))
         t_a2 = cuda_time_ms(run_a2, reps=20)
         t_a2_exact = cuda_time_ms(lambda: knn_cuda.nn1_kernel(q_big, refs_big, exact=True), reps=20)
         t_a2_plain = cuda_time_ms(lambda: knn_cuda.nn1_plain(q_big, refs_big), reps=20)
@@ -340,39 +517,23 @@ def main() -> int:
     log(f"nn1 at V=6890, N={n_sampler}: kernel {t_a2:.4f} ms (exact build {t_a2_exact:.4f}), "
         f"plain {t_a2_plain:.4f} ms, bound {bound_a2:.4f} ms (operations)")
     log(f"nn1 exact build at V=386: kernel {t_a_exact:.4f} ms against {t_a:.4f}")
+    log(f"nn1 on the padded pose meshes, N={MESH_BUCKET}, V={V}: kernel {t_a4:.4f} ms")
 
     # ---------------- 5. training: the port's main path ----------------
     rng = np.random.default_rng(SEED)
     before = {k: p.detach().clone() for k, p in ts.params().items()}
+
+    def zero_counts():
+        knn_cuda.nn1.launches = 0
+        grid_cuda.grid_trilinear.launches = 0
+
+    def read_counts():
+        return {"nn1": knn_cuda.nn1.launches, "grid_trilinear": grid_cuda.grid_trilinear.launches}
+
     torch.cuda.reset_peak_memory_stats()
-    knn_cuda.nn1.launches = 0
-    grid_cuda.grid_trilinear.launches = 0
-
-    def make_batch(f):
-        rays = sample_rays(scene, f, RAYS, rng)
-        return Batch(
-            uv=torch.as_tensor(rays["uv"], device=dev), rgb=torch.as_tensor(rays["rgb"], device=dev),
-            pose=torch.as_tensor(scene.cam_pose[f], device=dev),
-            intrinsics=torch.as_tensor(scene.intrinsics, device=dev), frame_idx=f,
-            smpl_scale=torch.as_tensor(scene.scale, device=dev),
-            sam_mask=torch.as_tensor(rays["sam"], device=dev),
-        )
-
-    step_s = []
-    for i in range(STEPS):
-        f = i % F_
-        batch = make_batch(f)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ts, logs = builder.step(ts, batch, generator=gen)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        vals = {k: float(v) for k, v in logs.items()}
-        assert all(math.isfinite(v) for v in vals.values()), f"step {i}: non-finite {vals}"
-        assert vals["update_skipped"] == 0.0, f"step {i}: update skipped"
-        log(f"step {i} frame {f}: loss {vals['loss']:.5f} rgb {vals['rgb_loss']:.5f} "
-            f"eik {vals['eikonal_loss']:.5f} {step_s[-1] * 1e3:.1f} ms")
-    launches = {"nn1": knn_cuda.nn1.launches, "grid_trilinear": grid_cuda.grid_trilinear.launches}
+    zero_counts()
+    ts, step_s, _ = run_steps("parity", stepper, ts, [make_batch(scene, i % F_, rng, dev) for i in range(STEPS)], gen)
+    launches = read_counts()
     peak_mem = torch.cuda.max_memory_allocated()
     assert launches["nn1"] == 8 * STEPS, f"nn1 launched {launches['nn1']} times in {STEPS} steps"
     assert launches["grid_trilinear"] == STEPS, f"grid_trilinear launched {launches['grid_trilinear']} times"
@@ -380,18 +541,21 @@ def main() -> int:
     # conditioning) is zero before epoch 20, so its gradient is exactly zero
     unchanged = {k for k, p in ts.params().items() if torch.equal(p, before[k])}
     assert unchanged <= {"net.fg_render.lin_pose.weight"}, f"params unchanged: {unchanged}"
-    med = sorted(step_s[1:])[len(step_s[1:]) // 2]
-    log(f"train: median step {med * 1e3:.2f} ms ({RAYS / med:.1f} rays/s) over steps 1..{STEPS - 1}, "
+    med = median(step_s[1:])
+    log(f"train (parity preset): median step {med * 1e3:.2f} ms ({RAYS / med:.1f} rays/s) over steps "
+        f"1..{STEPS - 1}, range {min(step_s[1:]) * 1e3:.2f}-{max(step_s[1:]) * 1e3:.2f} ms, "
         f"step 0 {step_s[0] * 1e3:.1f} ms, peak memory {peak_mem / 2**30:.3f} GiB")
 
     # where one more step's time goes (after the counts were read)
-    batch = make_batch(STEPS % F_)
-    wall, busy, rows, n_names, n_launch = step_breakdown(lambda: builder.step(ts, batch, generator=gen))
+    batch = make_batch(scene, STEPS % F_, rng, dev)
+    wall, busy, rows, n_names, n_launch, gemms = step_breakdown(lambda: stepper.step(ts, batch, generator=gen))
     log(f"profiled step: wall {wall:.2f} ms, device busy {busy:.2f} ms (idle share "
         f"{1 - busy / wall:.3f}), {n_launch} kernel launches of {n_names} kinds ({LAUNCHES_BEFORE} "
         f"before the kernels' wrappers were thinned); top by device time, then the two ported kernels:")
     for name, ms, count in rows:
         log(f"  {ms:9.3f} ms  x{count:<5d} {name}")
+    parity = {"median_ms": med * 1e3, "busy_ms": busy, "wall_ms": wall, "launches": n_launch,
+              "gemm_ms": gemm_summary(gemms), "peak_gib": peak_mem / 2**30}
 
     # full-frame render, train=False, in 512-ray chunks
     uv = torch.as_tensor(pixel_grid(scene.width, scene.height), device=dev)
@@ -414,12 +578,115 @@ def main() -> int:
     log(f"render: {scene.height}x{scene.width} frame in {time.perf_counter() - t0:.2f} s, "
         f"PSNR {-10 * math.log10(mse):.3f} dB after {STEPS} steps")
 
+    # ---------------- 6. path F: the fast preset ----------------
+    conf_f = load_config(
+        os.path.join(ROOT, "confs", "taichi01_base.yaml"),
+        overrides={"model": load_config(os.path.join(ROOT, "confs", "model", "taichi01_fast_model.yaml")).to_dict()},
+    ).model
+    conf_f["num_training_frames"] = F_
+    conf_f["implicit_network"]["number_person"] = P
+    assert conf_f.sampler_bf16 and conf_f.bbox_ray_range, "the fast preset did not load"
+    gen_f = torch.Generator(dev).manual_seed(SEED)  # the same initial weights as the parity preset
+    renderer_f = MultiplyRenderer(conf_f, num_persons=P, num_frames=F_, generator=gen_f, device=dev)
+    stepper_f = TrainStep(renderer_f, state, LossConfig(sam_start_epoch=0), learning_rate=conf_f.learning_rate)
+    ts_f = stepper_f.init_state(body_tables(scene, dev))
+    rng_f = np.random.default_rng(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    ts_f, step_f, _ = run_steps("fast", stepper_f, ts_f,
+                                [make_batch(scene, i % F_, rng_f, dev) for i in range(STEPS_FAST)], gen_f)
+    launches_f = read_counts()
+    peak_f = torch.cuda.max_memory_allocated()
+    assert launches_f == {"nn1": 8 * STEPS_FAST, "grid_trilinear": STEPS_FAST}, f"fast preset launches {launches_f}"
+    batch = make_batch(scene, STEPS_FAST % F_, rng_f, dev)
+    wall_f, busy_f, _, _, n_launch_f, gemms_f = step_breakdown(
+        lambda: stepper_f.step(ts_f, batch, generator=gen_f))
+    med_f = median(step_f[1:])
+    bf16_f, other_f = gemm_summary(gemms_f)
+    log(f"train (fast preset): median step {med_f * 1e3:.2f} ms ({RAYS / med_f:.1f} rays/s) over steps "
+        f"1..{STEPS_FAST - 1}, range {min(step_f[1:]) * 1e3:.2f}-{max(step_f[1:]) * 1e3:.2f} ms, "
+        f"step 0 {step_f[0] * 1e3:.1f} ms, peak memory {peak_f / 2**30:.3f} GiB")
+    log(f"fast | parity: median step {med_f * 1e3:.2f} | {parity['median_ms']:.2f} ms; profiled wall "
+        f"{wall_f:.2f} | {parity['wall_ms']:.2f} ms; device busy {busy_f:.2f} | {parity['busy_ms']:.2f} ms; idle "
+        f"share {1 - busy_f / wall_f:.3f} | {1 - parity['busy_ms'] / parity['wall_ms']:.3f}; launches a step "
+        f"{n_launch_f} | {parity['launches']}; GEMM device time bf16 {bf16_f:.3f} | {parity['gemm_ms'][0]:.3f} ms, "
+        f"other types {other_f:.3f} | {parity['gemm_ms'][1]:.3f} ms; peak memory {peak_f / 2**30:.3f} | "
+        f"{parity['peak_gib']:.3f} GiB")
+    log("GEMM kernels of one profiled step, fast preset:")
+    for name, ms, count in gemms_f:
+        log(f"  {ms:9.3f} ms  x{count:<5d} {name}")
+    log("GEMM kernels of one profiled step, parity preset:")
+    for name, ms, count in gemms:
+        log(f"  {ms:9.3f} ms  x{count:<5d} {name}")
+    assert bf16_f > 0, "no bf16 GEMM kernel ran in the fast preset's step"
+    assert other_f > 0, "no f32 GEMM kernel remained in the fast preset's step"
+    del renderer_f, stepper_f, ts_f
+
+    # ---------------- 7. path P: pose-only steps with the mesh losses ----------------
+    # person 1 steps in front of and into person 0, so the instance masks (made
+    # with the bodies apart) disagree with the geometry and the bodies overlap
+    transl_p = scene.transl.copy()
+    transl_p[:, 1] = transl_p[:, 0] + np.array([0.1, 0.0, -0.15], np.float32)
+    loss_p = LossConfig.from_config(conf.loss)._replace(sam_start_epoch=0)
+    gen_p = torch.Generator(dev).manual_seed(SEED)
+    renderer_p = MultiplyRenderer(conf, num_persons=P, num_frames=F_, generator=gen_p, device=dev)
+    stepper_p = TrainStep(renderer_p, state, loss_p, learning_rate=conf.learning_rate,
+                          interp_samples=INTERP_SAMPLES)
+    ts_p = stepper_p.init_state(body_tables(scene, dev, transl_p))
+    rng_p = np.random.default_rng(SEED)
+    frames_p = [i % F_ for i in range(STEPS_POSE)]
+    batches_p = [make_batch(scene, f, rng_p, dev, mode=MODE_POSE_ONLY) for f in frames_p]
+    pose_batches = [pose_loss_batch(scene, f, rng_p, dev) for f in frames_p]
+    before_p = {k: p.detach().clone() for k, p in ts_p.params().items()}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    ts_p, step_p, logs_p = run_steps("pose", stepper_p, ts_p, batches_p, gen_p, pose_batches)
+    launches_p = read_counts()
+    peak_p = torch.cuda.max_memory_allocated()
+    # nn1: the render's 8, plus the deformer's forward warp of the padded meshes
+    assert launches_p == {"nn1": 9 * STEPS_POSE, "grid_trilinear": STEPS_POSE}, f"pose step launches {launches_p}"
+    pose_terms = {k: logs_p[k] for k in ("pose_depth_order_loss", "pose_silhouette_loss", "pose_interpenetration_loss")}
+    assert pose_terms["pose_depth_order_loss"] > 0 or pose_terms["pose_interpenetration_loss"] > 0, pose_terms
+    moved = {k for k, p in ts_p.params().items() if not torch.equal(p, before_p[k])}
+    assert moved == {k for k in before_p if k.startswith("body.")}, f"pose-only step moved {sorted(moved)}"
+    assert all(c == STEPS_POSE for c in ts_p.opt_pose.count.values()) and not any(ts_p.opt_joint.count.values())
+    wall_p, busy_p, _, names_p, n_launch_p, _ = step_breakdown(
+        lambda: stepper_p.step(ts_p, batches_p[0], generator=gen_p, pose_batch=pose_batches[0]))
+    # the same step traced again with the card's activity alone: the two
+    # traces must count the same launches, or one of them lost events
+    _, busy_p2, _, _, n_launch_p2, _ = step_breakdown(
+        lambda: stepper_p.step(ts_p, batches_p[0], generator=gen_p, pose_batch=pose_batches[0]), with_cpu=False)
+    med_p = median(step_p[1:])
+    log(f"train (pose-only, M={POSE_PIXELS} pixels, {MESH_BUCKET}-face meshes, {INTERP_SAMPLES} interpenetration "
+        f"samples): median step {med_p * 1e3:.2f} ms over steps 1..{STEPS_POSE - 1}, range "
+        f"{min(step_p[1:]) * 1e3:.2f}-{max(step_p[1:]) * 1e3:.2f} ms, step 0 {step_p[0] * 1e3:.1f} ms, peak memory "
+        f"{peak_p / 2**30:.3f} GiB; profiled wall {wall_p:.2f} ms, device busy {busy_p:.2f} ms (idle share "
+        f"{1 - busy_p / wall_p:.3f}), {n_launch_p} kernel launches of {names_p} kinds (traced again with the card's activity alone: "
+        f"{n_launch_p2} launches, device busy {busy_p2:.2f} ms); last pose terms {pose_terms}; "
+        f"moved: {sorted(moved)}")
+    del renderer_p, stepper_p, ts_p, pose_batches
+
+    # ---------------- 8. one step each of the other configurations ----------------
+    for i, (name, updates, groups) in enumerate(VARIANTS):
+        torch.cuda.empty_cache()
+        run_variant(name, model_conf_with(conf, **updates), groups, scene, state, dev, SEED + 10 + i)
+
+    launches_by_path = {"parity": launches, "fast": launches_f, "pose": launches_p}
+    steps_by_path = {"parity": STEPS, "fast": STEPS_FAST, "pose": STEPS_POSE}
+    per_step = {path: {k: n / steps_by_path[path] for k, n in counts.items()}
+                for path, counts in launches_by_path.items()}
+    log(f"kernel launches by path: {launches_by_path} over steps {steps_by_path}")
+
     kernels = [
         {
             "name": "nn1", "route": "cuda", "source": "multiply_tpu_torch/csrc/nn1.cu",
             "replaces": "multiply_tpu/ops/knn_pallas.py:62 (nn1_pallas / _nn_kernel)",
-            "launches": launches["nn1"], "launches_per_step": launches["nn1"] / STEPS,
-            "max_abs_err": err_a, "max_err": err_a, "ms": t_a, "kernel_ms": t_a,
+            # `launches` and `launches_per_step` are the parity path's own pair
+            "launches": launches["nn1"], "launches_per_step": per_step["parity"]["nn1"],
+            "launches_by_path": {k: v["nn1"] for k, v in launches_by_path.items()}, "steps_by_path": steps_by_path,
+            "launches_per_step_by_path": {k: v["nn1"] for k, v in per_step.items()},
+            "max_abs_err": max(err_a, err_a3, err_a4), "max_err": max(err_a, err_a3, err_a4),
+            "max_abs_err_pose_meshes": err_a4, "ms_pose_meshes": t_a4, "ms": t_a, "kernel_ms": t_a,
             "plain_ms": t_a_plain, "bound_ms": bound_a,
             "bound_by": "operations" if a_ops / PEAK_FP32_FLOPS > a_bytes / PEAK_BYTES else "bytes",
             "library_ms": t_a_lib, "device_ms": dev_a, "host_us": host_a, "host_us_best": host_a_best,
@@ -431,7 +698,10 @@ def main() -> int:
         {
             "name": "grid_trilinear", "route": "cuda", "source": "multiply_tpu_torch/csrc/grid_trilinear.cu",
             "replaces": "multiply_tpu/ops/grid_pallas.py:80 (_grid_trilinear / _kernel)",
-            "launches": launches["grid_trilinear"], "launches_per_step": launches["grid_trilinear"] / STEPS,
+            "launches": launches["grid_trilinear"], "launches_per_step": per_step["parity"]["grid_trilinear"],
+            "launches_by_path": {k: v["grid_trilinear"] for k, v in launches_by_path.items()},
+            "steps_by_path": steps_by_path,
+            "launches_per_step_by_path": {k: v["grid_trilinear"] for k, v in per_step.items()},
             "max_abs_err": max(err_b, err_b1), "max_err": max(err_b, err_b1), "ms": t_b, "kernel_ms": t_b,
             "plain_ms": t_b_plain, "bound_ms": bound_b,
             "bound_by": "operations" if b_ops / PEAK_FP32_FLOPS > b_bytes / PEAK_BYTES else "bytes",

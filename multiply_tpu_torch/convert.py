@@ -6,10 +6,15 @@ module imports nothing of JAX). flax kernels are (in, out) with weight-norm
 `g` per output; the port's weights are (out, in), so kernels are transposed.
 
 Port parameter names map to pytree paths as
-  net.<net>.lins.<l>.{weight,bias,g} -> net/<net>/params/lin<l>/{kernel,bias,g}
-  net.fg_render.lin_pose.*           -> net/fg_render/params/lin_pose/*
-  net.frame_latent, net.beta         -> net/frame_latent, net/beta
-  body.<field>                       -> body/<field>
+  net.<net>.lins.<l>.{weight,bias,g}   -> net/<net>/params/lin<l>/{kernel,bias,g}
+  net.fg_render.{lin_pose,lin_id}.*    -> net/fg_render/params/{lin_pose,lin_id}/*
+  net.offset_head.heads.<i>.*, .last.* -> net/offset_head/params/head<i>/*, .../last/*
+  net.beta_encoder.beta_layer.*        -> net/beta_encoder/params/beta_layer/*
+  net.triplane.planes, .planes_<r>     -> net/triplane/params/planes, .../planes_<r>
+  net.triplane.dense.<i>.*             -> net/triplane/params/Dense_<i>/*
+  net.frame_latent, net.beta, net.person_latent -> net/<the same name>
+  body.<field>                         -> body/<field>
+A shared shape net (`use_person_encoder`) has no person axis on either side.
 """
 
 from __future__ import annotations
@@ -26,11 +31,27 @@ from .models.renderer import PersonState
 def flax_path(name: str) -> tuple[tuple[str, ...], bool]:
     """(pytree path, whether the leaf is a transposed kernel) of a port parameter."""
     parts = name.split(".")
-    if parts[0] == "body" or parts[1] in ("frame_latent", "beta"):
+    if parts[0] == "body" or len(parts) == 2:
         return tuple(parts), False
     _, net, *layer, leaf = parts
-    layer = f"lin{layer[1]}" if layer[0] == "lins" else layer[0]
+    if not layer:  # a bare parameter of a module: the tri-plane's planes
+        return ("net", net, "params", leaf), False
+    layer = _LAYER_LISTS[layer[0]] + layer[1] if layer[0] in _LAYER_LISTS else layer[0]
     return ("net", net, "params", layer, "kernel" if leaf == "weight" else leaf), leaf == "weight"
+
+
+_LAYER_LISTS = {"lins": "lin", "heads": "head", "dense": "Dense_"}
+
+
+def flax_leaf_paths(tree, prefix=()) -> set[tuple[str, ...]]:
+    """Paths of every leaf in a pytree of nested dicts and NamedTuples."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif hasattr(tree, "_fields"):
+        items = ((f, getattr(tree, f)) for f in tree._fields)
+    else:
+        return {prefix}
+    return set().union(*(flax_leaf_paths(v, prefix + (k,)) for k, v in items))
 
 
 def flax_leaf(tree, name: str) -> np.ndarray:
@@ -47,7 +68,13 @@ def to_flax_layout(name: str, value) -> np.ndarray:
 
 
 def load_params(params: dict, tree) -> None:
-    """Copy the pytree's leaves into the port's named parameters, in place."""
+    """Copy the pytree's leaves into the port's named parameters, in place.
+    Given the whole {"net", "body"} pytree, a leaf that no parameter takes, or
+    a parameter with no leaf, raises."""
+    if isinstance(tree, dict) and set(tree) == {"net", "body"}:
+        want, have = {flax_path(n)[0] for n in params}, flax_leaf_paths(tree)
+        if want != have:
+            raise ValueError(f"pytree leaves left over {sorted(have - want)}, missing {sorted(want - have)}")
     with torch.no_grad():
         for name, p in params.items():
             value = flax_leaf(tree, name)

@@ -5,6 +5,9 @@ Counterpart of `multiply_tpu/engine/train.py`:
     frame latents and density beta only);
   * frame-indexed SMPL params read from the optimizable tables;
   * temporal pose smoothness vs the previous frame (epoch > 250);
+  * on pose-only frames, with a `PoseLossBatch`, the mesh-based depth-order,
+    silhouette and interpenetration losses, weighted and decayed over
+    `depth_loss_milestone`;
   * a non-finite loss or gradient drops the whole update: params, moments
     and step counts stay as they were;
   * MultiStepLR per epoch, Adam eps 1e-8, body params at 0.1x lr.
@@ -19,9 +22,17 @@ from dataclasses import dataclass
 import torch
 
 from ..body.params import BodyParamTable
+from ..body.server import smpl_server_forward
 from ..models.loss import LossConfig, total_loss
 from ..models.renderer import MultiplyRenderer, PersonState, RenderInputs
+from ..utils.cameras import get_camera_params
 from .optim import AdamState, adam_init, adam_update, multistep_lr
+from .pose_losses import (
+    draw_interpenetration_samples,
+    interpenetration_loss,
+    sparse_depth_order_loss,
+    sparse_silhouette_loss,
+)
 
 MODE_JOINT = 0
 MODE_POSE_ONLY = 1
@@ -58,6 +69,21 @@ class Batch:
     mode: int = MODE_JOINT
 
 
+@dataclass
+class PoseLossBatch:
+    """Mesh payload of the pose-opt step losses: each person's canonical mesh,
+    padded to a common size so shapes stay fixed across frames, plus a sample
+    of pixels where SAM is confident. The meshes are constants inside the step:
+    gradients flow through the deformer and the SMPL forward into the
+    per-frame SMPL parameters only."""
+
+    verts_c: torch.Tensor  # (P, V, 3) padded canonical verts
+    faces: torch.Tensor  # (P, F, 3) int64, padded with degenerate 0,0,0 faces
+    uv: torch.Tensor  # (M, 2) sampled pixels
+    sam_probs: torch.Tensor  # (M, P) sigmoid SAM probabilities at those pixels
+    scale_to_full: torch.Tensor | float  # n_valid_pixels / M (rescales the summed loss)
+
+
 def make_lr_factors(params: dict, body_factor: float = 0.1) -> dict:
     return {k: body_factor if k.startswith("body.") else 1.0 for k in params}
 
@@ -84,6 +110,7 @@ class TrainStep:
         learning_rate: float = 5e-4,
         sched_milestones: tuple[int, ...] = (200, 500),
         sched_factor: float = 0.5,
+        interp_samples: int = 5120,
     ):
         self.renderer = renderer
         self.state = person_state
@@ -91,6 +118,7 @@ class TrainStep:
         self.lr = learning_rate
         self.milestones = tuple(sched_milestones)
         self.gamma = sched_factor
+        self.interp_samples = interp_samples
 
     def init_state(self, body_tables: BodyParamTable) -> TrainState:
         """`body_tables`: the stacked-over-persons table; the renderer's own
@@ -101,11 +129,47 @@ class TrainStep:
         ts.opt_pose = adam_init({k: p for k, p in params.items() if k.startswith("body.")})
         return ts
 
-    def _pose_step_losses(self, *args, **kwargs):
-        raise NotImplementedError("the pose-opt step losses are not ported yet")
+    def draw_noise(self, batch: Batch, pose_batch: PoseLossBatch | None = None, generator=None) -> dict:
+        """All random numbers of one step: the renderer's, plus the
+        interpenetration samples ("interp_idx", one index tensor a person) when
+        there is a `pose_batch`."""
+        noise = self.renderer.draw_noise(
+            batch.uv.shape[0], self.state.server.verts_c.shape[-2], generator, self.state.surface_sample_logits
+        )
+        if pose_batch is not None:
+            P, V = pose_batch.verts_c.shape[:2]
+            noise["interp_idx"] = draw_interpenetration_samples(
+                [V] * P, self.interp_samples, generator, pose_batch.verts_c.device
+            )
+        return noise
 
-    def forward_loss(self, ts: TrainState, batch: Batch, noise=None, generator=None):
+    def _pose_step_losses(self, ts: TrainState, batch: Batch, pose_batch: PoseLossBatch, interp_idx):
+        """Raw depth-order, silhouette and interpenetration losses on the
+        deformed meshes, differentiable to the per-frame SMPL parameters."""
+        body, idx = ts.body, batch.frame_idx
+        ray_d, cam_loc = get_camera_params(pose_batch.uv, batch.pose, batch.intrinsics)
+        ray_o = cam_loc.expand_as(ray_d)
+        smpl_out = smpl_server_forward(
+            self.state.server, batch.smpl_scale, body.transl[:, idx], body.thetas(idx), body.betas[:, 0]
+        )
+        # all persons' meshes in one warp; they live in un-normalised (1 / scale) space
+        verts_d = self.state.deformer.forward(pose_batch.verts_c, smpl_out["smpl_tfs"])
+        verts_d = verts_d / batch.smpl_scale[:, None, None]
+        verts_list, faces_list = list(verts_d.unbind(0)), list(pose_batch.faces.unbind(0))
+
+        ray_o = ray_o / batch.smpl_scale[0]
+        d_loss, _ = sparse_depth_order_loss(
+            ray_o, ray_d, verts_list, faces_list, pose_batch.sam_probs,
+            scale_to_full=pose_batch.scale_to_full,
+        )
+        i_loss = interpenetration_loss(verts_list, faces_list, sample_idx=interp_idx)
+        s_loss = sparse_silhouette_loss(ray_o, ray_d, verts_list, faces_list, pose_batch.sam_probs)
+        return d_loss, s_loss, i_loss
+
+    def forward_loss(self, ts: TrainState, batch: Batch, noise=None, generator=None, pose_batch=None):
         """(loss, logs) of one batch, differentiable w.r.t. `ts.params()`."""
+        if noise is None:
+            noise = self.draw_noise(batch, pose_batch, generator)
         body, idx = ts.body, batch.frame_idx
         thetas = body.thetas(idx)  # (P, 72)
         inputs = RenderInputs(
@@ -113,16 +177,31 @@ class TrainStep:
             scale=batch.smpl_scale, transl=body.transl[:, idx], thetas=thetas,
             betas=body.betas[:, 0], frame_idx=idx, epoch=ts.epoch,
         )
-        out = ts.model.render(self.state, inputs, train=True, noise=noise, generator=generator)
+        out = ts.model.render(self.state, inputs, train=True, noise=noise)
         if ts.epoch > 250:
             out["temporal_loss"] = ((body.thetas(max(idx - 1, 0)) - thetas) ** 2).mean()
         loss, logs = total_loss(self.loss_cfg, out, batch.rgb, ts.epoch, sam_mask_logits=batch.sam_mask)
+
+        zero = torch.zeros((), device=loss.device)
+        d_w, s_w, i_w = zero, zero, zero
+        if pose_batch is not None:
+            d_raw, s_raw, i_raw = self._pose_step_losses(ts, batch, pose_batch, noise["interp_idx"])
+            cfg = self.loss_cfg
+            decay = 1.0 - min(float(cfg.depth_loss_milestone), float(ts.epoch)) / cfg.depth_loss_milestone
+            d_w = cfg.depth_order_weight * decay * d_raw
+            s_w = cfg.silhouette_weight * decay * s_raw
+            i_w = cfg.interpenetration_weight * decay * i_raw
+            loss = loss + d_w + s_w + i_w
+            logs["loss"] = loss
+        logs["pose_depth_order_loss"] = d_w
+        logs["pose_silhouette_loss"] = s_w
+        logs["pose_interpenetration_loss"] = i_w
         return loss, logs
 
-    def loss_and_grads(self, ts: TrainState, batch: Batch, noise=None, generator=None):
+    def loss_and_grads(self, ts: TrainState, batch: Batch, noise=None, generator=None, pose_batch=None):
         """(loss, logs, grads): grads by parameter name, zeros where unused."""
         params = ts.params()
-        loss, logs = self.forward_loss(ts, batch, noise, generator)
+        loss, logs = self.forward_loss(ts, batch, noise, generator, pose_batch)
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         grads = {
             k: torch.zeros_like(p) if g is None else g
@@ -131,10 +210,10 @@ class TrainStep:
         return loss, logs, grads
 
     def step(self, ts: TrainState, batch: Batch, noise=None, generator=None, pose_batch=None):
-        """One optimization step; updates `ts` in place and returns (ts, logs)."""
-        if pose_batch is not None:
-            self._pose_step_losses(ts, batch, pose_batch)
-        loss, logs, grads = self.loss_and_grads(ts, batch, noise, generator)
+        """One optimization step; updates `ts` in place and returns (ts, logs).
+        `pose_batch` (pose-only frames) adds the mesh-based depth-order,
+        silhouette and interpenetration losses to the differentiated loss."""
+        loss, logs, grads = self.loss_and_grads(ts, batch, noise, generator, pose_batch)
         finite = torch.isfinite(loss) & torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
         lr_now = multistep_lr(self.lr, ts.epoch, self.milestones, self.gamma)
         if bool(finite):  # otherwise drop the whole update, optimizer state included

@@ -1,10 +1,10 @@
 """Training losses with epoch-keyed schedules.
 
-Counterpart of `multiply_tpu/models/loss.py` for the terms the training step
-uses: L1 RGB, eikonal, BCE opacity (with the clamp before the logs),
-in-shape, SAM instance-mask clip loss and temporal pose smoothness. Masked
-means replace boolean indexing so every term keeps a fixed shape. The
-SMPL-surface, zero-pose and depth-order terms are not ported yet.
+Counterpart of `multiply_tpu/models/loss.py`: L1 RGB, eikonal, BCE opacity
+(with the clamp before the logs), in-shape, SAM instance-mask clip loss,
+temporal pose smoothness, the SMPL-surface clamp, depth-order decay and
+zero-pose decay. Masked means replace boolean indexing so every term keeps a
+fixed shape.
 """
 
 from __future__ import annotations
@@ -108,11 +108,18 @@ def sam_mask_clip(sam_mask_logits: torch.Tensor, acc_person: torch.Tensor) -> to
     return torch.where(clip, diff, torch.zeros_like(diff)).sum() / (n_pix * n_person)
 
 
+def depth_order(t_front: torch.Tensor, t_correct: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Softplus ranking that pushes the person SAM says owns a pixel (depth
+    `t_correct`) in front of the geometrically frontmost one (`t_front`),
+    summed over the `valid` pixels where both are defined."""
+    rank = torch.log1p(torch.exp(t_correct - t_front))
+    return torch.where(valid, rank, torch.zeros_like(rank)).sum()
+
+
 def total_loss(cfg: LossConfig, outputs: dict, rgb_gt: torch.Tensor, epoch: int,
-               sam_mask_logits: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+               sam_mask_logits: torch.Tensor | None = None,
+               depth_order_loss: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
     """Combine all terms with the reference's epoch schedules."""
-    if cfg.smpl_surface_weight or cfg.zero_pose_weight:
-        raise NotImplementedError("the SMPL-surface and zero-pose terms are not ported yet")
     epoch = float(epoch)
     rgb_loss = rgb_l1(outputs["rgb_values"], rgb_gt)
     zero = _zero(rgb_loss)
@@ -126,9 +133,20 @@ def total_loss(cfg: LossConfig, outputs: dict, rgb_gt: torch.Tensor, epoch: int,
 
     curr = min(float(cfg.milestone), epoch)
     temporal_loss = outputs.get("temporal_loss", zero)
+    smpl_surface_loss = outputs.get("smpl_surface_loss", zero) * cfg.smpl_surface_weight
     sam_loss = zero
     if sam_mask_logits is not None and epoch >= cfg.sam_start_epoch:
         sam_loss = sam_mask_clip(sam_mask_logits, outputs["acc_person_list"])
+    if depth_order_loss is None or epoch < cfg.sam_start_epoch:
+        depth_order_loss = zero
+    else:
+        depth_order_loss = depth_order_loss * (
+            1.0 - min(float(cfg.depth_loss_milestone), epoch) / cfg.depth_loss_milestone
+        )
+    zero_pose_loss = (
+        outputs.get("zero_pose_loss", zero) * cfg.zero_pose_weight
+        * (1.0 - min(float(cfg.zero_pose_milestone), epoch) / cfg.zero_pose_milestone)
+    )
     increase = min(1.0, epoch / 100.0) if cfg.increase_sam else 1.0
 
     loss = (
@@ -139,6 +157,9 @@ def total_loss(cfg: LossConfig, outputs: dict, rgb_gt: torch.Tensor, epoch: int,
         + cfg.in_shape_weight * (1 - curr / cfg.milestone) * in_shape_loss
         + temporal_loss * cfg.temporal_loss_weight
         + cfg.sam_mask_weight * sam_loss * increase
+        + smpl_surface_loss * (1 - min(float(cfg.smpl_surface_milestone), epoch) / cfg.smpl_surface_milestone)
+        + depth_order_loss
+        + zero_pose_loss
     )
     return loss, {
         "loss": loss,
@@ -149,4 +170,7 @@ def total_loss(cfg: LossConfig, outputs: dict, rgb_gt: torch.Tensor, epoch: int,
         "in_shape_loss": in_shape_loss,
         "temporal_loss": temporal_loss,
         "sam_mask_loss": sam_loss,
+        "smpl_surface_loss": smpl_surface_loss,
+        "depth_order_loss": depth_order_loss,
+        "zero_pose_loss": zero_pose_loss,
     }

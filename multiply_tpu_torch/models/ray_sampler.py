@@ -115,16 +115,25 @@ def error_bound_sample(
     beta0: float | torch.Tensor,  # current Laplace beta (no grad)
     num_fields: int,  # P: independent SDF fields sampled along the same rays
     noise: dict | None = None,
+    ray_range: tuple | None = None,  # per-ray (near (P, R), far (P, R))
 ) -> dict:
-    """Returns z_vals (P, R, N_samples + N_samples_extra + 2), sorted, and beta_final (P, R)."""
+    """Returns z_vals (P, R, N_samples + N_samples_extra + 2), sorted, and beta_final (P, R).
+    `ray_range` clips sampling to a per-ray interval (a person's bounding-box
+    entry and exit) instead of [near, sphere exit]: the same budget of
+    evaluations, concentrated on the subject."""
     P, R = num_fields, ray_o.shape[0]
     n_eval, iters = cfg.N_samples_eval, cfg.max_total_iters
     M = n_eval * iters
     dev = ray_o.device
 
     far = get_sphere_intersections(ray_o, ray_d, r=cfg.scene_bounding_sphere)[:, 1:]
-    far = far.expand(P, R, 1)
-    near = torch.full((P, R, 1), float(cfg.near), device=dev)
+    if ray_range is not None:
+        near = ray_range[0][..., None]
+        far = torch.minimum(ray_range[1][..., None], far)
+        far = torch.maximum(far, near + 1e-4)
+    else:
+        far = far.expand(P, R, 1)
+        near = torch.full((P, R, 1), float(cfg.near), device=dev)
 
     def eval_sdf(z):  # (P, R, n) -> (P, R, n)
         pts = ray_o[:, None, :] + z[..., None] * ray_d[:, None, :]

@@ -1,10 +1,14 @@
 """Multi-person VolSDF renderer: per-person canonical SDF fields, SMPL
-deformation, a NeRF++ background and the pairwise-attenuation composite.
+deformation, a NeRF++ background and the interval composite over persons.
 
-Counterpart of `multiply_tpu/models/renderer.py` for its default f32 path
-(`composite_matmul=True`, no sampler_bf16, no bbox ray range, no person
-encoder / tri-plane / offset head / beta encoder; a config asking for one of
-those raises NotImplementedError). The persons are a leading tensor axis:
+Counterpart of `multiply_tpu/models/renderer.py`, for every model
+configuration it takes: per-person or shared shape nets (`use_person_encoder`
+with identity latents), tri-plane conditioning (`cond: smpl_tri`, single or
+multi-resolution with its delta-SDF), the offset head and the beta encoder,
+bfloat16 sampler evaluations (`sampler_bf16`), box-clipped ray ranges
+(`bbox_ray_range`), the pairwise-attenuation or the sorted composite
+(`composite_matmul`), a shadow channel in the background net, and the
+SMPL-surface and zero-pose extras. The persons are a leading tensor axis:
 every network layer, the sampler and both kernels run once for all persons.
 
 Training noise is explicit: `render(..., noise=...)` takes the dict that
@@ -26,11 +30,15 @@ from ..ops.mesh_ops import ray_aabb_range, sdf_grid
 from ..ops.skinning import covector_apply_rows, rotation_inverse_rows
 from ..utils.cameras import get_camera_params
 from .deformer import SMPLDeformer
-from .networks import ImplicitNet, RenderingNet
+from ..ops.embedders import embedding_dim, positional_encoding
+from .networks import COND_DIMS, BetaEncoder, ImplicitNet, OffsetHead, RenderingNet
 from .ray_sampler import SamplerConfig, error_bound_sample, uniform_z_vals
+from .triplane import TriPlane, TriPlaneMulti
 
 OUTLIER_SDF = 4.0  # SDF given to KNN outliers at eval
 N_EIKONAL = 512  # eikonal samples per person
+N_ZERO_POSE = 2000  # canonical vertices per person in the zero-pose term
+ID_LATENT = 64  # width of a person's identity latent and of a tri-plane feature
 
 
 class PersonState(NamedTuple):
@@ -56,26 +64,12 @@ class RenderInputs(NamedTuple):
     epoch: int
 
 
-_UNPORTED = {
-    "use_person_encoder": False,
-    "sampler_bf16": False,
-    "bbox_ray_range": False,
-    "composite_matmul": True,
-}
-
-
 class MultiplyRenderer(nn.Module):
     """Holds the networks and the density beta as parameters."""
 
     def __init__(self, conf, num_persons: int, num_frames: int,
                  generator: torch.Generator | None = None, device="cuda"):
         super().__init__()
-        for key, supported in _UNPORTED.items():
-            if bool(conf.get(key, supported)) != supported:
-                raise NotImplementedError(f"{key}={conf.get(key)} is not ported yet")
-        for key in ("smpl_surface_weight", "zero_pose_weight"):
-            if conf.get("loss", {}).get(key, 0):
-                raise NotImplementedError(f"loss.{key} > 0 is not ported yet")
         self.conf = conf
         self.P = num_persons
         self.num_frames = num_frames
@@ -84,13 +78,55 @@ class MultiplyRenderer(nn.Module):
         self.threshold = 0.05  # off-surface threshold
         self.sampler_cfg = SamplerConfig.from_config(conf.ray_sampler, self.scene_sphere)
         self.beta_min = float(conf.density.get("beta_min", 1e-4))
-        if conf.bg_rendering_network.d_out != 3:
-            raise NotImplementedError("a shadow channel in the background net is not ported yet")
+        loss_conf = conf.get("loss", {})
+        self.smpl_surface_weight = loss_conf.get("smpl_surface_weight", 0)
+        self.zero_pose_weight = loss_conf.get("zero_pose_weight", 0)
+        # one shared shape net with per-person identity latents
+        self.use_person_encoder = bool(conf.get("use_person_encoder", False))
+        # bfloat16 for the sampler's SDF evaluations: they only place samples,
+        # the render evaluations stay f32
+        self.sampler_bf16 = bool(conf.get("sampler_bf16", False))
+        # pairwise-attenuation composite (cost O(P^2 R S^2)); off: one stable
+        # depth sort over all persons' intervals. Equal up to float association.
+        self.composite_matmul = bool(conf.get("composite_matmul", True))
+        # clip each person's sampling interval to its box entry and exit
+        self.bbox_ray_range = bool(conf.get("bbox_ray_range", False))
 
         kw = dict(generator=generator, device=device)
-        self.fg_implicit = ImplicitNet.from_config(conf.implicit_network, stack=num_persons, **kw)
+        imp = conf.implicit_network
+        cond = imp.cond
+        # a shared net is conditioned on pose + identity latent whatever `cond` says
+        cond_dim = 69 + ID_LATENT if self.use_person_encoder else COND_DIMS[cond]
+        self.fg_implicit = ImplicitNet.from_config(
+            imp, cond_dim=cond_dim, stack=None if self.use_person_encoder else num_persons, **kw
+        )
+        self.multi_triplane = cond == "smpl_tri" and bool(imp.get("multi_triplane", False))
+        self.triplane = None
+        if self.multi_triplane:
+            self.triplane = TriPlaneMulti(
+                ID_LATENT, tuple(imp.get("triplane_res", (128, 64, 32, 16))), stack=num_persons, **kw
+            )
+        elif cond == "smpl_tri":
+            self.triplane = TriPlane(
+                ID_LATENT, int(imp.get("triplane_resolution", 128)), stack=num_persons, **kw
+            )
+        self.offset_head = None
+        if imp.get("offset_head", False):
+            self.offset_head = OffsetHead(
+                1 + imp.feature_vector_size + cond_dim + embedding_dim(imp.multires, imp.d_in),
+                imp.feature_vector_size, no_head_feature=bool(imp.get("no_head_feature", False)),
+                stack=num_persons, **kw,
+            )
+        self.beta_encoder = (
+            BetaEncoder(imp.dims[0], stack=num_persons, **kw) if imp.get("beta_encoding", False) else None
+        )
+        if self.use_person_encoder:
+            self.person_latent = nn.Parameter(torch.randn((num_persons, ID_LATENT), **kw) * 0.1)
         self.fg_render = RenderingNet.from_config(conf.rendering_network, stack=num_persons, **kw)
-        self.bg_implicit = ImplicitNet.from_config(conf.bg_implicit_network, **kw)
+        bg = conf.bg_implicit_network
+        self.bg_implicit = ImplicitNet.from_config(
+            bg, cond_dim=self.dim_frame if bg.cond == "frame" else None, **kw
+        )
         self.bg_render = RenderingNet.from_config(
             conf.bg_rendering_network, dim_frame_encoding=self.dim_frame, **kw
         )
@@ -121,12 +157,13 @@ class MultiplyRenderer(nn.Module):
             surface_sample_logits=logits,
         )
 
-    def draw_noise(self, num_rays: int, num_verts: int, generator=None) -> dict:
-        """The training step's random numbers, drawn from `generator`."""
+    def draw_noise(self, num_rays: int, num_verts: int, generator=None, surface_logits=None) -> dict:
+        """The training step's random numbers, drawn from `generator`.
+        `surface_logits` (P, V) weight the SMPL-surface term's vertex draw."""
         cfg, P, dev = self.sampler_cfg, self.P, self.beta.device
         M = cfg.N_samples_eval * cfg.max_total_iters
         kw = dict(generator=generator, device=dev)
-        return {
+        noise = {
             "sampler_u": torch.rand((P, num_rays, cfg.N_samples), **kw),
             "sampler_perm": torch.stack(
                 [torch.randperm(M, **kw)[: cfg.N_samples_extra] for _ in range(P)]
@@ -135,17 +172,72 @@ class MultiplyRenderer(nn.Module):
             "eik_idx": torch.randint(0, num_verts, (P, N_EIKONAL), **kw),
             "eik_normal": torch.randn((P, N_EIKONAL, 3), **kw),
         }
+        # drawn only for the terms that are on, so the other draws stay as they were
+        if self.smpl_surface_weight > 0:
+            probs = torch.softmax(
+                torch.zeros((P, num_verts), device=dev) if surface_logits is None else surface_logits, dim=-1
+            )
+            noise["surface_idx"] = torch.multinomial(probs, num_rays, replacement=True, generator=generator)
+        if self.zero_pose_weight > 0:
+            noise["zero_pose_idx"] = torch.randint(0, num_verts, (P, N_ZERO_POSE), **kw)
+        return noise
 
     # ------------------------------------------------------------------
     # pieces
     # ------------------------------------------------------------------
 
-    def _sdf_and_grad(self, x, cond_vec, create_graph: bool):
+    def implicit_bundle(self, dtype: torch.dtype) -> dict:
+        """Every leaf that `_implicit` reads, cast to `dtype` once and cut from
+        the graph: {module name: {parameter name: tensor}}."""
+        names = ("fg_implicit", "triplane", "offset_head", "beta_encoder")
+        return {
+            name: {k: p.detach().to(dtype) for k, p in getattr(self, name).named_parameters()}
+            for name in names if getattr(self, name) is not None
+        }
+
+    def _implicit(self, x, cond_vec, betas=None, bundle: dict | None = None):
+        """Foreground SDF + feature of all persons: x (P, N, 3) -> (P, N, 1 + F).
+        `cond_vec` (P, c) is the pose, or pose + identity latent; `betas`
+        (P, 10) feeds the beta encoder where there is one. With a `bundle` of
+        `implicit_bundle` the modules run on its leaves, and the inputs are
+        cast to their type (the sampler's bfloat16)."""
+
+        def call(name, *args, **kwargs):
+            module = getattr(self, name)
+            if bundle is None:
+                return module(*args, **kwargs)
+            return torch.func.functional_call(module, bundle[name], args, kwargs)
+
+        dsdf = None
+        dtype = x.dtype if bundle is None else bundle["fg_implicit"]["lins.0.weight"].dtype
+        cond_vec = cond_vec.to(dtype)
+        if self.triplane is not None:
+            # keep the 69 pose dims (strip any identity latent), append the
+            # per-point tri-plane feature sampled at x / 2 (x still f32)
+            tri = call("triplane", x * 0.5)
+            if self.multi_triplane:
+                tri, dsdf = tri
+            pose = cond_vec[..., None, :69].expand(x.shape[:-1] + (69,))
+            cond_vec = torch.cat([pose, tri.to(dtype)], dim=-1)
+        x = x.to(dtype)
+        layer0_extra = None
+        if self.beta_encoder is not None and betas is not None:
+            layer0_extra = call("beta_encoder", betas.to(dtype))
+        out = call("fg_implicit", x, cond_vec, layer0_extra=layer0_extra)
+        if dsdf is not None and self.offset_head is None:
+            # the pyramid's delta-SDF; with an offset head the head's own delta takes over
+            out = torch.cat([out[..., :1] + dsdf[..., None].to(out.dtype), out[..., 1:]], dim=-1)
+        if self.offset_head is not None:
+            inp = positional_encoding(x, self.fg_implicit.multires)
+            out = call("offset_head", out, cond_vec, inp)
+        return out
+
+    def _sdf_and_grad(self, x, cond_vec, betas, create_graph: bool):
         """Implicit forward at x (P, N, 3) plus d sdf / d x, sharing one forward."""
         with torch.enable_grad():
             if not x.requires_grad:
                 x = x.detach().requires_grad_(True)
-            out = self.fg_implicit(x, cond_vec)
+            out = self._implicit(x, cond_vec, betas)
             sdf = out[..., 0]
             (grad,) = torch.autograd.grad(
                 sdf, x, torch.ones_like(sdf), create_graph=create_graph
@@ -154,7 +246,7 @@ class MultiplyRenderer(nn.Module):
             out, grad = out.detach(), grad.detach()
         return out, grad
 
-    def _person_rays(self, state: PersonState, inputs: RenderInputs, cond_vec,
+    def _person_rays(self, state: PersonState, inputs: RenderInputs, cond_vec, cond_pose,
                      ray_o, ray_d, beta0, train: bool, noise) -> dict:
         """SMPL, sampling, SDF, color and normals for all persons at once."""
         R = ray_o.shape[0]
@@ -166,21 +258,33 @@ class MultiplyRenderer(nn.Module):
         # padded AABB hit mask in place of the reference's OBB ray culling
         vmax, vmin = verts.max(-2).values, verts.min(-2).values
         center, half = 0.5 * (vmax + vmin), 0.5 * (vmax - vmin) * 1.2
-        _, _, hit = ray_aabb_range(ray_o, ray_d, center - half, center + half)  # (P, R)
+        t_near, t_far, hit = ray_aabb_range(ray_o, ray_d, center - half, center + half)  # (P, R)
 
         tfs_ng, verts_ng, cond_ng = tfs.detach(), verts.detach(), cond_vec.detach()
+        betas = inputs.betas
+        # the points stay f32 through the deformer (and its nn1 kernel); only
+        # the implicit net's leaves, cast once for all the sampler's
+        # evaluations, and its inputs go to bfloat16
+        bundle16 = self.implicit_bundle(torch.bfloat16) if self.sampler_bf16 else None
 
         def sdf_only(pts):
             with torch.no_grad():
                 x_c, outlier = state.deformer.inverse(pts, tfs_ng, verts_ng)
-                sdf = self.fg_implicit(x_c, cond_ng)[..., 0]
+                sdf = self._implicit(x_c, cond_ng, betas, bundle=bundle16)[..., 0].float()
                 if not train:
                     sdf = torch.where(outlier, OUTLIER_SDF, sdf)
                 return sdf
 
+        ray_range = None
+        if self.bbox_ray_range:  # rays that miss keep the full interval (they are masked anyway)
+            ray_range = (
+                torch.where(hit, t_near, 0.0).detach(),
+                torch.where(hit, t_far, 2.0 * self.scene_sphere).detach(),
+            )
         samp = error_bound_sample(
             self.sampler_cfg, sdf_only, ray_o, ray_d, beta0, self.P,
             noise={"u": noise["sampler_u"], "perm": noise["sampler_perm"]} if train else None,
+            ray_range=ray_range,
         )
         z_all = samp["z_vals"].detach()  # (P, R, S+1)
         z_vals, z_max = z_all[..., :-1], z_all[..., -1]
@@ -188,7 +292,7 @@ class MultiplyRenderer(nn.Module):
 
         pts = (ray_o[:, None, :] + z_vals[..., None] * ray_d[:, None, :]).reshape(self.P, R * S, 3)
         x_c, outlier = state.deformer.inverse(pts, tfs, verts)
-        out, sdf_grad_c = self._sdf_and_grad(x_c, cond_vec, create_graph=torch.is_grad_enabled())
+        out, sdf_grad_c = self._sdf_and_grad(x_c, cond_vec, betas, create_graph=torch.is_grad_enabled())
         sdf, feat = out[..., 0], out[..., 1:]
         if not train:
             sdf = torch.where(outlier, OUTLIER_SDF, sdf)
@@ -196,7 +300,9 @@ class MultiplyRenderer(nn.Module):
         # n_d = g^T J^{-1}
         n_d = covector_apply_rows(rotation_inverse_rows(m_rows), sdf_grad_c)
         normals = n_d / n_d.norm(dim=-1, keepdim=True).clamp_min(1e-6)
-        rgb = self.fg_render(x_c, normals, None, cond_vec, feat)
+        view = -ray_d[:, None, :].expand(R, S, 3).reshape(R * S, 3)
+        id_latent = self.person_latent if self.use_person_encoder else cond_pose.new_zeros((self.P, ID_LATENT))
+        rgb = self.fg_render(x_c, normals, view.expand(self.P, -1, -1), cond_pose, feat, id_latent=id_latent)
         return {
             "z_vals": z_vals, "z_max": z_max, "sdf": sdf.reshape(self.P, R, S),
             "x_c": x_c, "feat": feat, "normals": normals, "rgb": rgb, "hit": hit,
@@ -208,29 +314,29 @@ class MultiplyRenderer(nn.Module):
     # ------------------------------------------------------------------
 
     def render(self, state: PersonState, inputs: RenderInputs, train: bool,
-               noise: dict | None = None, generator: torch.Generator | None = None) -> dict[str, Any]:
+               noise: dict | None = None, generator: torch.Generator | None = None,
+               cond_zero: bool = False) -> dict[str, Any]:
+        """`cond_zero` forces the zero pose conditioning in training mode."""
         ray_d, cam_loc = get_camera_params(inputs.uv, inputs.pose, inputs.intrinsics)
         R = ray_d.shape[0]
         ray_o = cam_loc.expand(R, 3)
         if train and noise is None:
-            noise = self.draw_noise(R, state.server.verts_c.shape[-2], generator)
+            noise = self.draw_noise(R, state.server.verts_c.shape[-2], generator, state.surface_sample_logits)
 
         beta = laplace_beta(self.beta[0], self.beta_min)
         beta0 = beta.detach()
 
         # epoch-keyed conditioning pose
         cond_pose = inputs.thetas[:, 3:] / math.pi  # (P, 69)
-        if train and (inputs.epoch < 20 or inputs.epoch % 20 == 0):
+        if train and (cond_zero or inputs.epoch < 20 or inputs.epoch % 20 == 0):
             cond_pose = torch.zeros_like(cond_pose)
+        # implicit-net conditioning: the pose, or pose + identity latent
+        cond_vec = torch.cat([cond_pose, self.person_latent], dim=-1) if self.use_person_encoder else cond_pose
 
-        pout = self._person_rays(state, inputs, cond_pose, ray_o, ray_d, beta0, train, noise)
+        pout = self._person_rays(state, inputs, cond_vec, cond_pose, ray_o, ray_d, beta0, train, noise)
         P, S = self.P, pout["z_vals"].shape[-1]
 
-        # ---------------- pairwise-attenuation composite ----------------
-        # weight of interval i of person p = alpha_i * exp(-(own exclusive
-        # prefix free energy + sum over q != p of fe_q on intervals ending
-        # before end_p[i])); equals the depth-sorted composite with ties
-        # resolved person-major (<= for q < p, < for q > p). Full f32.
+        # ---------------- interval composition over persons ----------------
         z, z_max = pout["z_vals"], pout["z_max"]
         ends = torch.cat([z[..., 1:], z_max[..., None]], dim=-1)
         delta = ends - z
@@ -239,27 +345,52 @@ class MultiplyRenderer(nn.Module):
         rgb = pout["rgb"].reshape(P, R, S, 3)
         normals = pout["normals"].reshape(P, R, S, 3)
 
-        own_prefix = torch.cumsum(fe, dim=-1) - fe
-        cross = []
-        for p in range(P):
-            acc = torch.zeros((R, S), device=fe.device)
-            for q in range(P):
-                if q == p:
-                    continue
-                if q < p:
-                    m = ends[q][:, None, :] <= ends[p][:, :, None]
-                else:
-                    m = ends[q][:, None, :] < ends[p][:, :, None]
-                acc = acc + (m.to(fe.dtype) @ fe[q][..., None])[..., 0]
-            cross.append(acc)
-        cross = torch.stack(cross)
-        w_p = (1.0 - torch.exp(-fe)) * torch.exp(-(own_prefix + cross))  # (P, R, S)
-        bg_transmittance = torch.exp(-fe.sum(dim=(0, -1)))
-        fg_rgb_values = torch.einsum("prs,prsc->rc", w_p, rgb)
-        normal_values = torch.einsum("prs,prsc->rc", w_p, normals)
-        acc_person = w_p.sum(-1).T  # (R, P)
-        acc_map = acc_person.sum(-1)
-        weights = w_p.permute(1, 0, 2).reshape(R, P * S)
+        if self.composite_matmul:
+            # pairwise attenuation: weight of interval i of person p = alpha_i *
+            # exp(-(own exclusive prefix free energy + sum over q != p of fe_q on
+            # intervals ending before end_p[i])); equals the depth-sorted
+            # composite with ties resolved person-major (<= for q < p, < for
+            # q > p). Full f32: an underestimated cross sum lets acc_map pass 1.
+            own_prefix = torch.cumsum(fe, dim=-1) - fe
+            cross = []
+            for p in range(P):
+                acc = torch.zeros((R, S), device=fe.device)
+                for q in range(P):
+                    if q == p:
+                        continue
+                    if q < p:
+                        m = ends[q][:, None, :] <= ends[p][:, :, None]
+                    else:
+                        m = ends[q][:, None, :] < ends[p][:, :, None]
+                    acc = acc + (m.to(fe.dtype) @ fe[q][..., None])[..., 0]
+                cross.append(acc)
+            cross = torch.stack(cross)
+            w_p = (1.0 - torch.exp(-fe)) * torch.exp(-(own_prefix + cross))  # (P, R, S)
+            bg_transmittance = torch.exp(-fe.sum(dim=(0, -1)))
+            fg_rgb_values = torch.einsum("prs,prsc->rc", w_p, rgb)
+            normal_values = torch.einsum("prs,prsc->rc", w_p, normals)
+            acc_person = w_p.sum(-1).T  # (R, P)
+            acc_map = acc_person.sum(-1)
+            weights = w_p.permute(1, 0, 2).reshape(R, P * S)
+        else:
+            # one stable sort of all persons' intervals by their far end (ties
+            # stay person-major), then transmittance in sorted order
+            def flat(x):  # (P, R, S, ...) -> (R, P * S, ...)
+                return x.movedim(0, 1).reshape((R, P * S) + x.shape[3:])
+
+            _, order = torch.sort(flat(ends), dim=-1, stable=True)
+            fe_s = flat(fe).gather(-1, order)
+            order3 = order[..., None].expand(R, P * S, 3)
+            rgb_s, nrm_s = flat(rgb).gather(1, order3), flat(normals).gather(1, order3)
+            pid_s = order // S  # the flat layout is person-major
+            shifted = torch.cat([torch.zeros((R, 1), device=fe.device), fe_s[:, :-1]], dim=-1)
+            weights = (1.0 - torch.exp(-fe_s)) * torch.exp(-torch.cumsum(shifted, dim=-1))  # (R, P * S)
+            bg_transmittance = torch.exp(-fe_s.sum(-1))
+            fg_rgb_values = (weights[..., None] * rgb_s).sum(-2)
+            normal_values = (weights[..., None] * nrm_s).sum(-2)
+            acc_map = weights.sum(-1)
+            person = torch.arange(P, device=fe.device)
+            acc_person = (weights[..., None] * (pid_s[..., None] == person)).sum(1)  # (R, P)
 
         # ---------------- background (NeRF++ inverse sphere) ----------------
         frame_latent = self.frame_latent[inputs.frame_idx]
@@ -277,7 +408,7 @@ class MultiplyRenderer(nn.Module):
             "hit": pout["hit"],
         }
         if train:
-            out.update(self._training_extras(state, inputs, pout, cond_pose, noise))
+            out.update(self._training_extras(state, inputs, pout, cond_vec, noise))
         return out
 
     # -- helpers -------------------------------------------------------
@@ -300,7 +431,10 @@ class MultiplyRenderer(nn.Module):
         bg_sdf, bg_feat = bg_out[:, :1], bg_out[:, 1:]
         bg_rgb = self.bg_render(
             None, None, bg_dirs.reshape(-1, 3), None, bg_feat, frame_latent=frame_latent
-        ).reshape(R, Nb, 3)
+        )
+        if bg_rgb.shape[-1] == 4:  # a shadow channel darkens the colour
+            bg_rgb = (1.0 - bg_rgb[:, 3:]) * bg_rgb[:, :3]
+        bg_rgb = bg_rgb.reshape(R, Nb, 3)
 
         # AbsDensity volume rendering in flipped (1 -> 0) order
         bg_density = bg_sdf.abs().reshape(R, Nb)
@@ -313,8 +447,11 @@ class MultiplyRenderer(nn.Module):
         return (bg_weights[..., None] * bg_rgb).sum(1)
 
     def _training_extras(self, state: PersonState, inputs, pout, cond_vec, noise):
-        """In/off-surface tests against the baked canonical grid, and eikonal gradients."""
+        """In/off-surface tests against the baked canonical grid, eikonal
+        gradients, and the SMPL-surface and zero-pose terms where they are on.
+        `cond_vec` is the implicit net's conditioning (pose, or pose + identity)."""
         S = pout["sdf"].shape[-1]
+        betas = inputs.betas
         g = state.cano_grid
         # least canonical distance along each ray, (P, R): one launch on the card
         dmin = grid_trilinear(g["grid"], pout["x_c"].detach(), g["origin"], g["spacing"], group=S)
@@ -325,11 +462,35 @@ class MultiplyRenderer(nn.Module):
         verts_c = state.server.verts_c
         idx = noise["eik_idx"][..., None].expand(-1, -1, 3)
         sample = verts_c.gather(1, idx) + noise["eik_normal"] * 0.01
-        _, grad_theta = self._sdf_and_grad(sample, cond_vec, create_graph=torch.is_grad_enabled())
+        _, grad_theta = self._sdf_and_grad(sample, cond_vec, betas, create_graph=torch.is_grad_enabled())
+
+        # SMPL-surface anchoring: sampled posed vertices should not lie outside the field
+        smpl_surface_loss = verts_c.new_zeros(())
+        if self.smpl_surface_weight > 0:
+            verts = pout["verts"]
+            sample = verts.gather(1, noise["surface_idx"][..., None].expand(-1, -1, 3))
+            x_c, _ = state.deformer.inverse(sample, pout["tfs"], verts)
+            sdf = self._implicit(x_c, cond_vec, betas)[..., 0]  # (P, R)
+            viol = sdf > 0.02
+            per_person = torch.where(viol, sdf - 0.02, 0.0).sum(-1) / viol.sum(-1).clamp_min(1)
+            smpl_surface_loss = per_person.sum()
+
+        # zero-pose consistency: on canonical surface points the field under
+        # the current pose conditioning should match the zero-pose conditioning
+        zero_pose_loss = verts_c.new_zeros(())
+        if self.zero_pose_weight > 0:
+            sample = verts_c.gather(1, noise["zero_pose_idx"][..., None].expand(-1, -1, 3))
+            out_pred = self._implicit(sample, cond_vec, betas)
+            cond_zero = torch.cat([torch.zeros_like(cond_vec[..., :69]), cond_vec[..., 69:]], dim=-1)
+            diff = (out_pred - self._implicit(sample, cond_zero, betas)).abs()
+            zero_pose_loss = (diff[..., :1].mean(dim=(-1, -2)) + diff[..., 1:].mean(dim=(-1, -2))).sum()
+
         return {
             "index_off_surface": off_p.all(0),
             "index_in_surface": in_p.any(0),
             "grad_theta": grad_theta.reshape(-1, 3),
+            "smpl_surface_loss": smpl_surface_loss,
+            "zero_pose_loss": zero_pose_loss,
             "epoch": inputs.epoch,
         }
 

@@ -1,5 +1,6 @@
 """Triangle-mesh geometry: point-triangle distance, winding-number sign, the
-baked signed-distance grid, its trilinear lookup, ray-mesh and ray-box tests.
+baked signed-distance grid, its trilinear lookup, ray-mesh (hard and soft-min
+depth) and ray-box tests.
 
 Counterpart of `multiply_tpu/ops/mesh_ops.py`. Every point x face product is
 tiled over points and faces, so peak memory stays chunk x face_chunk.
@@ -10,6 +11,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def _dot(a, b):
@@ -136,33 +138,67 @@ def grid_query(grid: dict, points: torch.Tensor) -> torch.Tensor:
     return c0 * (1 - fx) + c1 * fx
 
 
-def ray_mesh_intersect(ray_o, ray_d, verts, faces, chunk_size: int = 256, face_chunk: int = 8192) -> dict:
+def _ray_chunk_hits(oc, dc, tris, soft_tau: float, face_chunk: int):
+    """One chunk of rays against all faces: (t_min, hit, t_soft), each (C,).
+    Running minimum and streaming logsumexp over face tiles."""
+    BIG, NEG = 1e10, -1e30
+    C = oc.shape[0]
+    kw = dict(dtype=tris.dtype, device=tris.device)
+    t_min = torch.full((C,), BIG, **kw)
+    m = torch.full((C,), NEG, **kw)
+    s = torch.zeros((C,), **kw)
+    ts = torch.zeros((C,), **kw)
+    d = dc[:, None, :]
+    for tile in tris.split(face_chunk):
+        v0 = tile[None, :, 0]
+        e1 = tile[None, :, 1] - v0
+        e2 = tile[None, :, 2] - v0
+        pvec = torch.linalg.cross(d, e2)
+        det = (e1 * pvec).sum(-1)
+        # a zero-area (padding) face has det == 0: no hit, and no 1/0 in the backward
+        nondeg = det.abs() > 1e-9
+        inv_det = torch.where(nondeg, 1.0 / torch.where(nondeg, det, 1.0), 0.0)
+        tvec = oc[:, None, :] - v0
+        u = (tvec * pvec).sum(-1) * inv_det
+        qvec = torch.linalg.cross(tvec, e1)
+        v = (d * qvec).sum(-1) * inv_det
+        t = (e2 * qvec).sum(-1) * inv_det
+        valid = nondeg & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 1e-6)
+        t_min = torch.minimum(t_min, torch.where(valid, t, BIG).min(-1).values)
+        if soft_tau > 0:
+            logit = torch.where(valid, -t / soft_tau, NEG)
+            new_m = torch.maximum(m, logit.max(-1).values)
+            scale = torch.exp(m - new_m)
+            e = torch.exp(logit - new_m[:, None])
+            s = s * scale + e.sum(-1)
+            ts = ts * scale + (e * torch.where(valid, t, 0.0)).sum(-1)
+            m = new_m
+    hit = t_min < BIG * 0.5
+    if soft_tau > 0:
+        t_soft = torch.where(hit & (s > 0), ts / s.clamp_min(1e-30), 0.0)
+    else:
+        t_soft = torch.where(hit, t_min, 0.0)
+    return t_min, hit, t_soft
+
+
+def ray_mesh_intersect(ray_o, ray_d, verts, faces, soft_tau: float = 0.0,
+                       chunk_size: int = 256, face_chunk: int = 8192) -> dict:
     """Front-hit depth per ray (Moller-Trumbore): {"t": (R,) (1e10 on a miss),
-    "hit": (R,) bool}. Differentiable w.r.t. `verts` through `t`."""
-    BIG = 1e10
+    "hit": (R,) bool, "t_soft": (R,) the softmin-blended depth over all hit
+    faces when soft_tau > 0 (else t), 0 on a miss}. Differentiable w.r.t.
+    `verts`. When a gradient is wanted each ray chunk is checkpointed, so the
+    backward keeps no (chunk x face tile x 3) intermediate alive."""
     tris = verts[faces]
-    ts, hits = [], []
+    remat = torch.is_grad_enabled() and (tris.requires_grad or ray_o.requires_grad or ray_d.requires_grad)
+    out = []
     for oc, dc in zip(ray_o.split(chunk_size), ray_d.split(chunk_size)):
-        t_min = torch.full((oc.shape[0],), BIG, dtype=verts.dtype, device=verts.device)
-        for tile in tris.split(face_chunk):
-            v0 = tile[None, :, 0]
-            e1 = tile[None, :, 1] - v0
-            e2 = tile[None, :, 2] - v0
-            d = dc[:, None, :]
-            pvec = torch.linalg.cross(d, e2)
-            det = (e1 * pvec).sum(-1)
-            nondeg = det.abs() > 1e-9
-            inv_det = torch.where(nondeg, 1.0 / torch.where(nondeg, det, 1.0), 0.0)
-            tvec = oc[:, None, :] - v0
-            u = (tvec * pvec).sum(-1) * inv_det
-            qvec = torch.linalg.cross(tvec, e1)
-            v = (d * qvec).sum(-1) * inv_det
-            t = (e2 * qvec).sum(-1) * inv_det
-            valid = nondeg & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 1e-6)
-            t_min = torch.minimum(t_min, torch.where(valid, t, BIG).min(-1).values)
-        ts.append(t_min)
-        hits.append(t_min < BIG * 0.5)
-    return {"t": torch.cat(ts), "hit": torch.cat(hits)}
+        if remat:
+            out.append(checkpoint(_ray_chunk_hits, oc, dc, tris, soft_tau, face_chunk,
+                                  use_reentrant=False, preserve_rng_state=False))  # nothing random inside
+        else:
+            out.append(_ray_chunk_hits(oc, dc, tris, soft_tau, face_chunk))
+    t, hit, t_soft = (torch.cat(x) for x in zip(*out))
+    return {"t": t, "hit": hit, "t_soft": t_soft}
 
 
 def ray_aabb_range(ray_o, ray_d, lo, hi):

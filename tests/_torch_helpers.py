@@ -45,8 +45,12 @@ def npify(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def jax_noise(key, renderer, num_rays: int, num_verts: int) -> dict:
-    """The JAX renderer's training draws for `key`, in the port's noise layout."""
+def jax_noise(key, renderer, num_rays: int, num_verts: int, surface_logits=None, pose_verts=None,
+              interp_samples: int = 5120) -> dict:
+    """The JAX renderer's training draws for `key`, in the port's noise layout.
+    `surface_logits` (P, V) adds the SMPL-surface draw, `pose_verts` (the
+    padded vertex count of a pose batch) the interpenetration samples; the
+    zero-pose draw is always there."""
     P, cfg = renderer.P, renderer.sampler_cfg
     M = cfg.N_samples_eval * cfg.max_total_iters
     u, perm = [], []
@@ -66,7 +70,196 @@ def jax_noise(key, renderer, num_rays: int, num_verts: int) -> dict:
         ).astype(np.int64),
         "eik_normal": np.stack([np.asarray(jax.random.normal(ek[P + p], (512, 3))) for p in range(P)]),
     }
-    return {k: torch.tensor(np.array(v)) for k, v in noise.items()}
+    noise["zero_pose_idx"] = np.stack(
+        [np.asarray(jax.random.randint(k, (2000,), 0, num_verts)) for k in jax.random.split(jax.random.fold_in(key, 31), P)]
+    ).astype(np.int64)
+    if surface_logits is not None:
+        ks = jax.random.split(jax.random.fold_in(key, 23), P)
+        noise["surface_idx"] = np.stack(
+            [np.asarray(jax.random.categorical(ks[p], surface_logits[p], shape=(num_rays,))) for p in range(P)]
+        ).astype(np.int64)
+    noise = {k: torch.tensor(np.array(v)) for k, v in noise.items()}
+    if pose_verts is not None:
+        k7 = jax.random.fold_in(key, 7)
+        n = min(interp_samples, pose_verts)
+        noise["interp_idx"] = [
+            torch.tensor(np.asarray(jax.random.randint(jax.random.fold_in(k7, p), (n,), 0, pose_verts)).astype(np.int64))
+            for p in range(P)
+        ]
+    return noise
+
+
+TINY = {
+    "dim_frame_encoding": 8,
+    "implicit_network": {"feature_vector_size": 16, "d_in": 3, "d_out": 1, "dims": [32, 32, 32],
+                         "init": "geometry", "bias": 0.6, "skip_in": [2], "weight_norm": True,
+                         "multires": 4, "cond": "smpl", "scene_bounding_sphere": 3.0},
+    "rendering_network": {"feature_vector_size": 16, "mode": "pose_no_view", "d_in": 14, "d_out": 3,
+                          "dims": [32], "weight_norm": True, "multires_view": -1},
+    "bg_implicit_network": {"feature_vector_size": 16, "d_in": 4, "d_out": 1, "dims": [32, 32],
+                            "init": "none", "bias": 0.0, "skip_in": [], "weight_norm": False,
+                            "multires": 4, "cond": "frame"},
+    "bg_rendering_network": {"feature_vector_size": 16, "mode": "nerf_frame_encoding", "d_in": 3,
+                             "d_out": 3, "dims": [16], "weight_norm": False, "multires_view": 2},
+    "density": {"params_init": {"beta": 0.1}, "beta_min": 1e-4},
+    "ray_sampler": {"near": 0.0, "eps": 0.1, "add_tiny": 1e-6, "N_samples": 8, "N_samples_eval": 16,
+                    "N_samples_extra": 4, "beta_iters": 3, "max_total_iters": 2,
+                    "N_samples_inverse_sphere": 4},
+    "loss": {},
+}
+
+
+def tiny_conf(**updates) -> dict:
+    """A copy of the tiny model config; `a__b=v` sets conf["a"]["b"] = v."""
+    import copy
+
+    conf = copy.deepcopy(TINY)
+    for key, value in updates.items():
+        *path, last = key.split("__")
+        node = conf
+        for k in path:
+            node = node[k]
+        node[last] = value
+    return conf
+
+
+@functools.lru_cache(maxsize=1)
+def tiny_scene():
+    from multiply_tpu.data.synthetic import make_scene
+
+    return make_scene(num_frames=2, num_persons=2, height=24, width=32)
+
+
+@functools.lru_cache(maxsize=1)
+def tiny_person_state():
+    """The JAX per-person state of the tiny scene (it does not depend on the
+    model config), with uneven surface-sampling logits."""
+    from multiply_tpu.config import Config as JaxConfig
+    from multiply_tpu.models.renderer import MultiplyRenderer as JaxRenderer
+
+    scene = tiny_scene()
+    logits = [np.linspace(-1.0, 1.0, s.verts_c.shape[0]).astype(np.float32) * (p + 1)
+              for p, s in enumerate(scene.servers)]
+    jr = JaxRenderer(JaxConfig(tiny_conf()), num_persons=len(scene.servers), num_frames=2)
+    return jr.build_person_state(scene.servers, surface_logits=logits, grid_res=8)
+
+
+def tiny_program(conf: dict, loss_kw: dict | None = None, rays: int = 24, jitter: float = 0.03,
+                 interp_samples: int = 64):
+    """(JAX objects, port objects) of a tiny training program built from
+    `conf` on both sides, the JAX weights (jittered so that no path stays at
+    its silent initial value) carried across by `convert.load_params`."""
+    from multiply_tpu.body.params import BodyParamTable as JaxTable
+    from multiply_tpu.config import Config as JaxConfig
+    from multiply_tpu.data.synthetic import sample_rays
+    from multiply_tpu.engine.train import Batch as JaxBatch
+    from multiply_tpu.engine.train import TrainStep as JaxTrainStep
+    from multiply_tpu.models.loss import LossConfig as JaxLossConfig
+    from multiply_tpu.models.renderer import MultiplyRenderer as JaxRenderer
+    from multiply_tpu_torch import convert
+    from multiply_tpu_torch.body.params import BodyParamTable
+    from multiply_tpu_torch.config import Config
+    from multiply_tpu_torch.engine.train import Batch, TrainStep
+    from multiply_tpu_torch.models.loss import LossConfig
+    from multiply_tpu_torch.models.renderer import MultiplyRenderer
+
+    import copy
+
+    loss_kw = dict(sam_start_epoch=0, **(loss_kw or {}))
+    scene = tiny_scene()
+    P, F = len(scene.servers), scene.images.shape[0]
+    jr = JaxRenderer(JaxConfig(copy.deepcopy(conf)), num_persons=P, num_frames=F)
+    jstate = tiny_person_state()
+    jb = JaxTrainStep(jr, jstate, JaxLossConfig(**loss_kw), interp_samples=interp_samples)
+    tables = [
+        JaxTable.create(F, betas=scene.betas[p], global_orient=scene.poses[:, p, :3],
+                        transl=scene.transl[:, p], body_pose=scene.poses[:, p, 3:])
+        for p in range(P)
+    ]
+    from multiply_tpu.engine.optim import adam_init
+    from multiply_tpu.engine.train import TrainState as JaxTrainState
+
+    # one compiled init instead of an eager op-by-op one; the jitter in numpy
+    leaves, treedef = jax.tree.flatten(jax.jit(jr.init_params)(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(11)
+    net = jax.tree.unflatten(
+        treedef, [jnp.asarray(np.asarray(a) + jitter * rng.standard_normal(a.shape).astype(np.float32)) for a in leaves]
+    )
+    params = {"net": net, "body": jax.tree.map(lambda *xs: jnp.stack(xs), *tables)}
+    jts = JaxTrainState(params=params, opt_joint=adam_init(params), opt_pose=adam_init(params["body"]),
+                        epoch=jnp.zeros((), jnp.int32))
+    r = sample_rays(scene, 1, rays, np.random.default_rng(0))
+    jbatch = JaxBatch(
+        uv=jnp.asarray(r["uv"]), rgb=jnp.asarray(r["rgb"]), pose=jnp.asarray(scene.cam_pose[1]),
+        intrinsics=jnp.asarray(scene.intrinsics), frame_idx=jnp.asarray(1),
+        smpl_scale=jnp.asarray(scene.scale), sam_mask=jnp.asarray(r["sam"]),
+    )
+
+    renderer = MultiplyRenderer(Config(copy.deepcopy(conf)), P, F, device="cpu")
+    state = convert.person_state_from_jax(npify(jstate), device="cpu")
+    stepper = TrainStep(renderer, state, LossConfig(**loss_kw), interp_samples=interp_samples)
+    ts = stepper.init_state(BodyParamTable(*(torch.zeros(np.shape(x)) for x in jts.params["body"])))
+    convert.load_params(ts.params(), npify(jts.params))  # raises on a leaf left over or missing
+    b = npify(jbatch)
+    batch = Batch(
+        uv=torch.tensor(b.uv), rgb=torch.tensor(b.rgb), pose=torch.tensor(b.pose),
+        intrinsics=torch.tensor(b.intrinsics), frame_idx=int(b.frame_idx),
+        smpl_scale=torch.tensor(b.smpl_scale), sam_mask=torch.tensor(b.sam_mask),
+    )
+    return (jr, jstate, jb, jts, jbatch), (renderer, state, stepper, ts, batch)
+
+
+def assert_step_matches(jax_side, port_side, epoch: int, key, jpose=None, pose=None, mode: int = 0,
+                        loss_rtol: float = 2e-5, grad_rel: float = 1e-2):
+    """One training step on both sides from the same weights and noise: every
+    log, every gradient leaf and the updated parameters. Tolerances as in
+    test_torch_step.py: the losses are f32 means over the same samples (f32
+    rounding); gradients pass through second-order autograd in another
+    summation order (1% of each leaf's largest entry); Adam's first step is
+    ~lr*sign(g), so an entry whose gradient is near zero may move by up to
+    2*lr differently, the others agree to f32 rounding of the parameter.
+    Returns (logs, grads, jax logs)."""
+    import copy
+
+    from multiply_tpu_torch import convert
+
+    jr, jstate, jb, jts, jbatch = jax_side
+    renderer, state, stepper, ts, batch = port_side
+    jts = jts._replace(epoch=jnp.asarray(epoch))
+    jbatch = jbatch._replace(mode=jnp.asarray(mode))
+    ts, batch = copy.deepcopy(ts), copy.copy(batch)
+    ts.epoch, batch.mode = epoch, mode
+
+    @jax.jit
+    def jax_step(t, b, k, pb):
+        (_, logs), grads = jax.value_and_grad(jb._forward_loss, has_aux=True)(t.params, jstate, b, t.epoch, k, pb)
+        new_t, _ = jb.step(t, b, k, pose_batch=pb)
+        return logs, grads, new_t
+
+    jlogs, jgrads, jnew = npify(jax_step(jts, jbatch, key, jpose))
+    noise = jax_noise(
+        key, jr, batch.uv.shape[0], state.server.verts_c.shape[1], np.asarray(jstate.surface_sample_logits),
+        None if pose is None else pose.verts_c.shape[1], stepper.interp_samples,
+    )
+    loss, logs, grads = stepper.loss_and_grads(ts, batch, noise=noise, pose_batch=pose)
+    assert set(logs) == set(jlogs), set(logs) ^ set(jlogs)
+    for k in logs:
+        np.testing.assert_allclose(float(logs[k].detach()), float(jlogs[k]), rtol=loss_rtol, atol=1e-7, err_msg=k)
+    assert set(grads) == set(ts.params())
+    for name, g in grads.items():
+        assert_leaf_close(name, convert.to_flax_layout(name, g), convert.flax_leaf(jgrads, name), rel=grad_rel, atol=1e-9)
+
+    before = {k: p.detach().clone() for k, p in ts.params().items()}
+    ts, step_logs = stepper.step(ts, batch, noise=noise, pose_batch=pose)
+    assert step_logs["update_skipped"] == 0.0
+    lr = stepper.lr
+    for name, p in ts.params().items():
+        f = 0.1 if name.startswith("body.") else 1.0
+        got, want = convert.to_flax_layout(name, p), convert.flax_leaf(jnew.params, name)
+        strict = np.abs(convert.flax_leaf(jgrads, name)) > 1e-5
+        np.testing.assert_allclose(got, want, atol=2 * lr * f + 1e-6, err_msg=name)
+        np.testing.assert_allclose(got[strict], want[strict], atol=2e-6, err_msg=name)
+    return logs, grads, jlogs, before, ts, jnew
 
 
 @functools.lru_cache(maxsize=1)
@@ -84,9 +277,9 @@ def small_program():
     scene, jr, jstate, jb, jts, jbatch = _build(full_scale=False)
     renderer = MultiplyRenderer(Config(jr.conf.to_dict()), jr.P, jr.num_frames, device="cpu")
     state = convert.person_state_from_jax(npify(jstate), device="cpu")
-    builder = TrainStep(renderer, state, LossConfig(sam_start_epoch=0))
+    stepper = TrainStep(renderer, state, LossConfig(sam_start_epoch=0))
     body = BodyParamTable(*(torch.zeros(np.shape(x)) for x in jts.params["body"]))
-    ts = builder.init_state(body)
+    ts = stepper.init_state(body)
     convert.load_params(ts.params(), npify(jts.params))
     b = npify(jbatch)
     batch = Batch(
@@ -94,7 +287,7 @@ def small_program():
         intrinsics=torch.tensor(b.intrinsics), frame_idx=int(b.frame_idx),
         smpl_scale=torch.tensor(b.smpl_scale), sam_mask=torch.tensor(b.sam_mask),
     )
-    return (jr, jstate, jb, jts, jbatch), (renderer, state, builder, ts, batch)
+    return (jr, jstate, jb, jts, jbatch), (renderer, state, stepper, ts, batch)
 
 
 def assert_leaf_close(name, got, want, rel, atol=0.0):

@@ -131,41 +131,58 @@ def _small_conf():
     })
 
 
+def _step_on(dev, conf, loss_cfg, pose: bool):
+    """One step's (loss, grads on the CPU, kernel launches counted) on `dev`,
+    from weights and noise drawn on the CPU with fixed seeds."""
+    from multiply_tpu_torch.body.params import BodyParamTable
+    from multiply_tpu_torch.data.synthetic import make_scene, sample_rays
+    from multiply_tpu_torch.engine.train import MODE_POSE_ONLY, Batch, PoseLossBatch, TrainStep
+    from multiply_tpu_torch.models.renderer import MultiplyRenderer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    scene = make_scene(num_frames=2, num_persons=2, height=24, width=32, device=dev)
+    renderer = MultiplyRenderer(conf, 2, 2, generator=torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)  # one CPU stream: the same draw for both devices
+    noise = {k: v.to(dev) for k, v in renderer.draw_noise(64, 386, gen).items()}
+    renderer = renderer.to(dev)
+    state = renderer.build_person_state(scene.servers, grid_res=16)
+    stepper = TrainStep(renderer, state, loss_cfg, interp_samples=256)
+    transl = scene.transl.copy()
+    if pose:  # person 1 steps in front of and into person 0
+        transl[:, 1] = transl[:, 0] + np.array([0.1, 0.0, -0.15], np.float32)
+    ts = stepper.init_state(BodyParamTable.stack([
+        BodyParamTable.create(2, scene.betas[p], scene.poses[:, p, :3], transl[:, p],
+                              scene.poses[:, p, 3:], device=dev) for p in range(2)]))
+    ts.epoch = 30
+    rays = sample_rays(scene, 1, 64, np.random.default_rng(0))
+    batch = Batch(*(torch.as_tensor(x, device=dev) for x in (
+        rays["uv"], rays["rgb"], scene.cam_pose[1], scene.intrinsics)), frame_idx=1,
+        smpl_scale=torch.as_tensor(scene.scale, device=dev),
+        sam_mask=torch.as_tensor(rays["sam"], device=dev), mode=MODE_POSE_ONLY if pose else 0)
+    pose_batch = None
+    if pose:  # the body meshes padded with zero vertices and degenerate 0,0,0 faces
+        verts_c = torch.zeros((2, 512, 3), device=dev)
+        faces = torch.zeros((2, 1024, 3), dtype=torch.int64, device=dev)
+        for p, s in enumerate(scene.servers):
+            verts_c[p, : len(s.verts_c)], faces[p, : len(s.model.faces)] = s.verts_c, s.model.faces
+        pose_batch = PoseLossBatch(verts_c, faces, batch.uv, torch.sigmoid(batch.sam_mask), 1.5)
+    if pose:
+        noise["interp_idx"] = [torch.randint(0, 512, (256,), generator=gen).to(dev) for _ in range(2)]
+    launches = (knn_cuda.nn1.launches, grid_cuda.grid_trilinear.launches)
+    loss, logs, grads = stepper.loss_and_grads(ts, batch, noise=noise, pose_batch=pose_batch)
+    counted = (knn_cuda.nn1.launches - launches[0], grid_cuda.grid_trilinear.launches - launches[1])
+    logs = {k: float(v.detach()) if torch.is_tensor(v) else float(v) for k, v in logs.items()}
+    return float(loss.detach()), {k: g.cpu() for k, g in grads.items()}, counted, logs
+
+
 @pytest.mark.cuda
 def test_training_step_on_card_matches_cpu(cuda_device):
     """The whole step through both kernels on the card against the same step
     on the CPU (plain versions), from the same weights and noise."""
-    from multiply_tpu_torch.body.params import BodyParamTable
-    from multiply_tpu_torch.data.synthetic import make_scene, sample_rays
-    from multiply_tpu_torch.engine.train import Batch, TrainStep
     from multiply_tpu_torch.models.loss import LossConfig
-    from multiply_tpu_torch.models.renderer import MultiplyRenderer
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    out = {}
-    for dev in ("cpu", cuda_device):
-        scene = make_scene(num_frames=2, num_persons=2, height=24, width=32, device=dev)
-        renderer = MultiplyRenderer(_small_conf(), 2, 2, generator=torch.Generator().manual_seed(0),
-                                    device="cpu").to(dev)
-        state = renderer.build_person_state(scene.servers, grid_res=16)
-        builder = TrainStep(renderer, state, LossConfig(sam_start_epoch=0))
-        ts = builder.init_state(BodyParamTable.stack([
-            BodyParamTable.create(2, scene.betas[p], scene.poses[:, p, :3], scene.transl[:, p],
-                                  scene.poses[:, p, 3:], device=dev) for p in range(2)]))
-        ts.epoch = 30
-        rays = sample_rays(scene, 1, 64, np.random.default_rng(0))
-        batch = Batch(*(torch.as_tensor(x, device=dev) for x in (
-            rays["uv"], rays["rgb"], scene.cam_pose[1], scene.intrinsics)), frame_idx=1,
-            smpl_scale=torch.as_tensor(scene.scale, device=dev),
-            sam_mask=torch.as_tensor(rays["sam"], device=dev))
-        if dev == "cpu":  # one draw, on the CPU, for both legs
-            cpu_noise = renderer.draw_noise(64, 386, torch.Generator().manual_seed(1))
-        noise = {k: v.to(dev) for k, v in cpu_noise.items()}
-        launches = (knn_cuda.nn1.launches, grid_cuda.grid_trilinear.launches)
-        loss, logs, grads = builder.loss_and_grads(ts, batch, noise=noise)
-        counted = (knn_cuda.nn1.launches - launches[0], grid_cuda.grid_trilinear.launches - launches[1])
-        out[str(dev)] = (float(loss.detach()), {k: g.cpu() for k, g in grads.items()}, counted)
-    (l_cpu, g_cpu, n_cpu), (l_gpu, g_gpu, n_gpu) = out["cpu"], out[str(cuda_device)]
+    (l_cpu, g_cpu, n_cpu, _), (l_gpu, g_gpu, n_gpu, _) = (
+        _step_on(dev, _small_conf(), LossConfig(sam_start_epoch=0), pose=False) for dev in ("cpu", cuda_device))
     # nn1: 2 sampler evals in round 0 + 1 per later round, render inverse, Jacobian rows
     assert n_cpu == (0, 0) and n_gpu == (_small_conf().ray_sampler.max_total_iters + 3, 1)
     # f32 on both; GEMMs and reductions sum in another order on the card
@@ -173,3 +190,45 @@ def test_training_step_on_card_matches_cpu(cuda_device):
     for k in g_cpu:
         err = (g_cpu[k] - g_gpu[k]).abs().max().item()
         assert err <= 1e-2 * g_cpu[k].abs().max().item() + 1e-9, k
+
+
+@pytest.mark.cuda
+def test_pose_only_step_on_card_matches_cpu(cuda_device):
+    """A pose-only step with the mesh losses on the card against the CPU:
+    f32 on both, the tolerances of the joint step; one more nn1 launch for the
+    deformer's forward warp of the meshes."""
+    from multiply_tpu_torch.models.loss import LossConfig
+
+    cfg = LossConfig(sam_start_epoch=0, depth_order_weight=0.1, silhouette_weight=0.05, interpenetration_weight=0.005)
+    (l_cpu, g_cpu, n_cpu, logs_cpu), (l_gpu, g_gpu, n_gpu, logs_gpu) = (
+        _step_on(dev, _small_conf(), cfg, pose=True) for dev in ("cpu", cuda_device))
+    assert n_cpu == (0, 0) and n_gpu == (_small_conf().ray_sampler.max_total_iters + 4, 1)
+    assert logs_gpu["pose_depth_order_loss"] > 0 and logs_gpu["pose_interpenetration_loss"] > 0
+    for k in ("pose_depth_order_loss", "pose_silhouette_loss", "pose_interpenetration_loss"):
+        assert abs(logs_cpu[k] - logs_gpu[k]) <= 1e-4 * abs(logs_cpu[k]) + 1e-7, k
+    assert abs(l_cpu - l_gpu) <= 1e-5 * abs(l_cpu)
+    for k in g_cpu:
+        err = (g_cpu[k] - g_gpu[k]).abs().max().item()
+        assert err <= 1e-2 * g_cpu[k].abs().max().item() + 1e-9, k
+
+
+@pytest.mark.cuda
+def test_fast_preset_step_on_card_stays_in_a_band_around_cpu(cuda_device):
+    """`sampler_bf16` + `bbox_ray_range` on the card against the CPU. The
+    card's bf16 GEMMs accumulate and round at other points than the CPU's, a
+    sample that moves changes every later number, so the loss is held to a
+    band (5% of the CPU's loss) and the gradients to finiteness; the kernels
+    still see f32 points (the wrappers raise on anything else) and are
+    launched as often as in the f32 step."""
+    from multiply_tpu_torch.config import Config
+    from multiply_tpu_torch.models.loss import LossConfig
+
+    conf = Config(dict(_small_conf().to_dict(), sampler_bf16=True, bbox_ray_range=True))
+    (l_cpu, g_cpu, n_cpu, _), (l_gpu, g_gpu, n_gpu, _) = (
+        _step_on(dev, conf, LossConfig(sam_start_epoch=0), pose=False) for dev in ("cpu", cuda_device))
+    assert n_cpu == (0, 0) and n_gpu == (conf.ray_sampler.max_total_iters + 3, 1)
+    assert abs(l_cpu - l_gpu) <= 0.05 * abs(l_cpu)
+    assert all(torch.isfinite(g).all() and g.dtype == torch.float32 for g in g_gpu.values())
+    with pytest.raises(TypeError):
+        knn_cuda.nn1(torch.zeros((8, 3), device=cuda_device, dtype=torch.bfloat16),
+                     torch.zeros((4, 3), device=cuda_device, dtype=torch.bfloat16))
