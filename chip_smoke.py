@@ -38,9 +38,24 @@ Phases, each fatal on failure:
   8. one full-width step each of the sorted composite, the shared shape net
      with offset heads and beta encoders, `cond: smpl_tri`, and the
      multi-resolution tri-plane: finite loss, finite non-zero gradients on
-     each new parameter group.
-Each of the paths 5-7 zeroes the kernels' launch counters just before it and
-reads them just after. Prints the `{"kernels": [...]}` line, then the
+     each new parameter group;
+  9. path T, the trainer (`run_path_t`): the training entry's code
+     (`multiply_tpu_torch.cli.train`) on `confs/synthetic_fullscale.yaml` at
+     full width, 2 frames of 270x360, run A for 21 epochs across epoch 0's
+     instance-mask + SAM stages, validation render and checkpoint, and epoch
+     20's mesh refresh and opt_depth with its depth-map dumps; run B resumes a
+     fresh trainer from `last`, checks that the parameters, both Adam states
+     and the epoch came back, and trains one pose-only epoch; then the
+     learned-mesh instance-mask stage, 50 SMPL-init steps and one frame of the
+     test entry. Holds each kernel to its plain version on the first call of
+     each new shape that the path hands it (the steps, the warps of learned
+     and padded meshes, the validation render's chunks), on the path's own
+     output. Asserts every artifact, every step's finite loss, the mode
+     of every step against `_select_mode` and that the mesh refresh changed
+     the grid the step reads; prints seconds per epoch and per stage, steps
+     per mode, the kernels' launches, peak memory and the validation PSNR.
+Each of the paths 5-7 and 9 zeroes the kernels' launch counters just before
+it and reads them just after. Prints the `{"kernels": [...]}` line, then the
 nvidia-smi line, then `{"ok": true, "device": {...}}` as the last line.
 """
 
@@ -68,6 +83,14 @@ PEAK_BYTES = 3.35e12
 NN1_OPS_PER_PAIR = 9  # 3 sub, 3 mul, 2 add, 1 compare
 GRID_OPS_PER_POINT = 40  # 3x (sub, div, 2 clamps, floor, sub, min) + 7 lerps x 3
 LAUNCHES_BEFORE = 7447  # kernel launches of one step before the kernels' wrappers were thinned
+# path T: the training entry on the full-scale synthetic config, cut to 2 frames
+TRAIN_CONF = os.path.join("confs", "synthetic_fullscale.yaml")
+RUN_A_SETS = ("dataset.train.end_frame=2", "model.num_training_frames=2", "model.depth_epoch=[20]",
+              "model.it_per_loop=5")
+RUN_B_SETS = ("model.depth_end=false", "model.pose_start_epoch=1", "model.pose_opt_interval=1")
+EPOCHS_A = 21
+SMPL_INIT_STEPS = 50
+LEARNED_MESH_EPOCH = 191  # the instance-mask stage warps learned meshes after epoch 190
 
 
 def log(*args):
@@ -99,13 +122,23 @@ def check_nn1(q, r, name):
 
     from multiply_tpu_torch.ops import knn_cuda
 
-    d2_k, idx_k = knn_cuda.nn1_kernel(q, r)
     d2_e, idx_e = knn_cuda.nn1_kernel(q, r, exact=True)
     d2_p, idx_p = knn_cuda.nn1_plain(q, r)
-    torch.cuda.synchronize()
+    assert torch.equal(d2_e, d2_p) and torch.equal(idx_e, idx_p), f"{name}: exact build differs"
+    return compare_nn1(q, r, *knn_cuda.nn1_kernel(q, r), name)
+
+
+def compare_nn1(q, r, d2_k, idx_k, name):
+    """The kernel's output (d2_k, idx_k) on (q, r) against the plain version:
+    d2 within 1e-6 relative, an index apart only at a tie within 1e-6.
+    Returns (max_abs_err, n_idx_mismatch)."""
+    import torch
+
+    from multiply_tpu_torch.ops import knn_cuda
+
+    d2_p, idx_p = knn_cuda.nn1_plain(q, r)
     assert d2_k.shape == d2_p.shape and idx_k.shape == idx_p.shape, f"{name}: shapes"
     assert idx_k.dtype == torch.int64 and bool((d2_k >= 0).all()), f"{name}: output form"
-    assert torch.equal(d2_e, d2_p) and torch.equal(idx_e, idx_p), f"{name}: exact build differs"
     rel = ((d2_k - d2_p).abs() / d2_p.clamp_min(1e-30)).max().item()
     assert rel <= 1e-6, f"{name}: d2 relative error {rel} > 1e-6"
     # a differing index is allowed only where the two candidates tie within 1e-6
@@ -250,32 +283,16 @@ def body_tables(scene, dev, transl=None):
 
 
 def pose_loss_batch(scene, f, rng, dev, pixels=POSE_PIXELS, bucket=MESH_BUCKET):
-    """A `PoseLossBatch` of the synthetic scene: each person's canonical body
-    mesh padded to `bucket` vertices and faces (zero vertices, degenerate 0,0,0
-    faces), `pixels` pixels drawn where the instance masks are confident, and
-    the SAM probabilities there."""
-    import numpy as np
-    import torch
+    """A `PoseLossBatch` of the synthetic scene, made by the trainer's own
+    functions: each person's canonical body mesh padded to `bucket` vertices and
+    faces (padding repeats the last vertex; faces 0,0,0), and `pixels` pixels
+    drawn where the instance masks are confident, with the SAM probabilities there."""
+    from multiply_tpu_torch.engine.trainer import draw_pose_pixels, pose_batch_from_meshes
 
-    from multiply_tpu_torch.engine.train import PoseLossBatch
-
-    P = len(scene.servers)
-    verts_c = torch.zeros((P, bucket, 3), device=dev)
-    faces = torch.zeros((P, bucket, 3), dtype=torch.int64, device=dev)
-    for p, server in enumerate(scene.servers):
-        v, fc = server.verts_c, server.model.faces
-        verts_c[p, : len(v)], faces[p, : len(fc)] = v, fc
-    probs = 1.0 / (1.0 + np.exp(-scene.sam_logits[f]))
-    total = probs.sum(-1)
-    vy, vx = np.nonzero((total >= 0.7) & (total <= 1.01))
-    assert len(vx) > 0, "no confident pixel in the synthetic frame"
-    sel = rng.choice(len(vx), pixels, replace=len(vx) < pixels)
-    return PoseLossBatch(
-        verts_c=verts_c, faces=faces,
-        uv=torch.as_tensor(np.stack([vx[sel], vy[sel]], -1).astype(np.float32), device=dev),
-        sam_probs=torch.as_tensor(probs[vy[sel], vx[sel]].astype(np.float32), device=dev),
-        scale_to_full=len(vx) / pixels,
-    )
+    drawn = draw_pose_pixels(scene.sam_logits[f], pixels, rng)
+    assert drawn is not None, "no confident pixel in the synthetic frame"
+    meshes = [(s.verts_c.cpu().numpy(), s.model.faces.cpu().numpy()) for s in scene.servers]
+    return pose_batch_from_meshes(meshes, *drawn, bucket, dev)
 
 
 def run_steps(name, stepper, ts, batches, gen, pose_batches=None):
@@ -367,6 +384,322 @@ def run_variant(name, conf, groups, scene, state, dev, seed, rays=RAYS):
         f"{float(loss.detach()):.5f}, gradients finite and non-zero on {list(groups) or 'no new group'}")
 
 
+def zero_counts():
+    from multiply_tpu_torch.ops import grid_cuda, knn_cuda
+
+    knn_cuda.nn1.launches = 0
+    grid_cuda.grid_trilinear.launches = 0
+
+
+def read_counts():
+    from multiply_tpu_torch.ops import grid_cuda, knn_cuda
+
+    return {"nn1": knn_cuda.nn1.launches, "grid_trilinear": grid_cuda.grid_trilinear.launches}
+
+
+def hold_kernels_on_path():
+    """While path T runs, hold each kernel to its plain version on the inputs
+    that the path itself hands it: the first call of each new shape (`nn1`:
+    query shape and V; `grid_trilinear`: point shape, grid resolution, group)
+    has its output compared, on the same tensors, with the plain version's.
+    No kernel is launched for the check, so the launch counts stay the path's
+    own. A failure is recorded, not raised: the trainer's stages catch and
+    print what they raise. Returns ({shape: max abs error}, failures, undo)."""
+    import threading
+
+    import torch
+
+    from multiply_tpu_torch.models import renderer as renderer_module
+    from multiply_tpu_torch.ops import grid_cuda, skinning
+
+    checked, failures, lock = {}, [], threading.Lock()
+    nn1, grid_trilinear = skinning.nn1, renderer_module.grid_trilinear
+
+    def hold(key, compare):
+        with lock, torch.no_grad():
+            if key in checked:
+                return
+            try:
+                checked[key] = compare()
+            except Exception as e:  # noqa: BLE001 - every failure is reported after the run
+                checked[key] = math.inf
+                failures.append(f"{key}: {e!r}")
+
+    def nn1_held(query, refs):
+        d2, idx = nn1(query, refs)
+        name = f"path T nn1 query {tuple(query.shape)} V={refs.shape[-2]}"
+        hold(("nn1", tuple(query.shape), refs.shape[-2]), lambda: compare_nn1(query, refs, d2, idx, name)[0])
+        return d2, idx
+
+    def grid_held(grid, points, origin, spacing, group=1):
+        out = grid_trilinear(grid, points, origin, spacing, group=group)
+
+        def compare():
+            err = (out - grid_cuda.grid_trilinear_plain(grid, points, origin, spacing, group=group)).abs().max().item()
+            assert err <= 1e-5, f"max abs error {err} > 1e-5"
+            return err
+
+        hold(("grid_trilinear", tuple(points.shape), grid.shape[-1], group), compare)
+        return out
+
+    skinning.nn1, renderer_module.grid_trilinear = nn1_held, grid_held
+
+    def undo():
+        skinning.nn1, renderer_module.grid_trilinear = nn1, grid_trilinear
+
+    return checked, failures, undo
+
+
+def instrument(trainer):
+    """Record each training step of `trainer` as (epoch, mode, the mode
+    `_select_mode` gives the frame now, loss, update skipped), each opt_depth
+    loss, and each pose-loss payload as (built off the main thread, from a
+    snapshot, not None). Reading a loss waits for its step."""
+    import threading
+
+    steps, depth, payloads = [], [], []
+    step, depth_loss, pose_loss_batch = trainer.builder.step, trainer._depth_loss, trainer.pose_loss_batch
+    seq = trainer.seq
+
+    def recorded_step(ts, batch, **kw):
+        ts, logs = step(ts, batch, **kw)
+        certain = bool(seq.smpl_sam_iou[batch.frame_idx] >= seq.uncertain_threshold)
+        steps.append((trainer.epoch, batch.mode, trainer._select_mode(certain, True), float(logs["loss"]),
+                      float(logs["update_skipped"])))
+        return ts, logs
+
+    def recorded_depth_loss(*args, **kw):
+        val, parts = depth_loss(*args, **kw)
+        depth.append(float(val.detach()))
+        return val, parts
+
+    def recorded_pose_loss_batch(frame_idx, rng, params=None):
+        out = pose_loss_batch(frame_idx, rng, params=params)
+        payloads.append((threading.current_thread() is not threading.main_thread(), params is not None,
+                         out is not None))
+        return out
+
+    trainer.builder.step = recorded_step
+    trainer._depth_loss = recorded_depth_loss
+    trainer.pose_loss_batch = recorded_pose_loss_batch
+    return steps, depth, payloads
+
+
+def profile_stages(trainer):
+    """Wrap the trainer's epoch and stage methods, and the mesh extraction and
+    grid bake it calls, to record (seconds, peak memory) of each call, keyed
+    by (name, epoch); returns the record and a function that undoes it."""
+    import torch
+
+    import multiply_tpu_torch.engine.trainer as trainer_module
+
+    spent = {}
+
+    def timed(name, fn):
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            top = name in STAGE_METHODS
+            if top:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            key = (name, trainer.epoch)
+            seconds, peak, calls = spent.get(key, (0.0, 0.0, 0))
+            now_peak = torch.cuda.max_memory_allocated() / 2**30 if top else 0.0
+            spent[key] = (seconds + time.perf_counter() - t0, max(peak, now_peak), calls + 1)
+            return out
+
+        return wrapped
+
+    for name in STAGE_METHODS:
+        setattr(trainer, name, timed(name, getattr(trainer, name)))
+    originals = {name: getattr(trainer_module, name) for name in ("generate_mesh", "sdf_grid")}
+    for name, fn in originals.items():
+        setattr(trainer_module, name, timed(name, fn))
+
+    def undo():
+        for name in STAGE_METHODS:
+            delattr(trainer, name)
+        for name, fn in originals.items():
+            setattr(trainer_module, name, fn)
+
+    return spent, undo
+
+
+STAGE_METHODS = ("train_epoch", "instance_mask_stage", "validate", "refresh_canonical_state", "opt_depth")
+
+
+def read_metrics(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_path_t():
+    """Path T: the training and test entries' code on the full-scale synthetic
+    config, on the card. Returns a dict of what it measured."""
+    import numpy as np
+    import torch
+
+    from multiply_tpu_torch.cli import test as cli_test
+    from multiply_tpu_torch.cli import train as cli_train
+    from multiply_tpu_torch.engine.smpl_init import pretrain_smpl_init, sample_training_points, smpl_init_loss
+    from multiply_tpu_torch.engine.train import MODE_DELAYED_POSE, MODE_JOINT, MODE_POSE_ONLY
+    from multiply_tpu_torch.models.networks import ImplicitNet
+    from multiply_tpu_torch.utils.io import read_png
+
+    dev = "cuda"
+    run_dir = os.path.join(ROOT, "outputs", "chip_smoke_path_t")
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    def argv(sets, *more):
+        return ["--conf", os.path.join(ROOT, TRAIN_CONF), "--run_dir", run_dir, "--device", dev, *more,
+                *(f"--set={s}" for s in (*RUN_A_SETS, *sets))]
+
+    mode_names = {MODE_JOINT: "joint", MODE_POSE_ONLY: "pose_only", MODE_DELAYED_POSE: "delayed_pose"}
+    t0 = time.perf_counter()
+    trainer, conf, ckpt_dir = cli_train.build_trainer(cli_train.parse_args(argv(())))
+    setup_s = time.perf_counter() - t0
+    m, d = conf.model, conf.dataset.train
+    widths = (f"SDF {len(m.implicit_network.dims)}x{m.implicit_network.dims[0]}, render "
+              f"{len(m.rendering_network.dims)}x{m.rendering_network.dims[0]}, sampler "
+              f"{m.ray_sampler.max_total_iters}x{m.ray_sampler.N_samples_eval} evals (bf16 {m.sampler_bf16}), "
+              f"{d.num_sample} rays a step, {d.height}x{d.width} images, {len(trainer.seq)} frames")
+    assert list(m.implicit_network.dims) == [256] * 8 and list(m.rendering_network.dims) == [256] * 4, widths
+    assert (m.ray_sampler.max_total_iters, m.ray_sampler.N_samples_eval, d.num_sample) == (5, 128, 512), widths
+    assert (d.height, d.width, bool(m.sampler_bf16), bool(m.depth_end)) == (270, 360, True, True), widths
+    log(f"path T: set-up {setup_s:.1f} s ({widths})")
+
+    # ---- run A: epochs 0..20 ----
+    held_shapes, failures, unhold = hold_kernels_on_path()
+    steps_a, depth_a, _ = instrument(trainer)
+    spent, undo = profile_stages(trainer)
+    grid_before = trainer.person_state.cano_grid["grid"].clone()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer.fit(EPOCHS_A, ckpt_dir=ckpt_dir)
+    torch.cuda.synchronize()
+    fit_a_s = time.perf_counter() - t0
+    launches_a = read_counts()
+    undo()
+    peak_a = max(peak for _, peak, _ in spent.values())
+    assert min(launches_a.values()) > 0, f"path T run A launched {launches_a}"
+    grid_after = trainer.person_state.cano_grid["grid"]
+    assert trainer.builder.state.cano_grid["grid"] is grid_after, "the step does not read the refreshed grid"
+    for p in range(grid_after.shape[0]):
+        assert not torch.equal(grid_before[p], grid_after[p]), f"mesh refresh left person {p}'s grid as it was"
+    n_frames = len(trainer.seq)
+    assert len(steps_a) == EPOCHS_A * n_frames, f"run A took {len(steps_a)} steps"
+    for ep, mode, expected, loss, skipped in steps_a:
+        assert mode == expected, f"epoch {ep}: step mode {mode}, _select_mode gives {expected}"
+        assert math.isfinite(loss) and skipped == 0.0, f"epoch {ep}: loss {loss}, update skipped {skipped}"
+    assert len(depth_a) == n_frames * trainer.it_per_loop, f"opt_depth ran {len(depth_a)} iterations"
+    assert all(math.isfinite(v) for v in depth_a), f"opt_depth losses {depth_a}"
+    expected_files = [
+        "stage_instance_mask/00000/all_person_smpl_mask.npy", "stage_instance_mask/00000/2d_keypoint.npy",
+        "stage_sam_mask/00000/sam_opt_mask.npy", "val/epoch_00000.png", "checkpoints/epoch_00000",
+        "checkpoints/last", *(f"val/epoch_00000_person_{p}.ply" for p in range(trainer.num_person)),
+        *(f"stage_depth_map/{EPOCHS_A - 1:05d}/{it:05d}/{kind}/{kind}_{f:04d}.png"
+          for it in (0, trainer.it_per_loop - 1) for kind in ("front", "gt") for f in range(n_frames)),
+    ]
+    missing = [f for f in expected_files if not os.path.exists(os.path.join(run_dir, f))]
+    assert not missing, f"path T run A did not write {missing}"
+    metrics = read_metrics(run_dir)
+    epoch_s = {r["epoch"]: r["epoch_seconds"] for r in metrics if "epoch_seconds" in r}
+    stage_s = {f"{k[:-8]}@{r['epoch']}": r[k] for r in metrics for k in r if k.endswith("_seconds") and k != "epoch_seconds"}
+    psnr = [r["val_psnr"] for r in metrics if "val_psnr" in r]
+    assert psnr and all(math.isfinite(v) for v in psnr), f"validation PSNR {psnr}"
+    staged = {int(k.split("@")[1]) for k in stage_s}
+    plain_epochs = [s for ep, s in epoch_s.items() if ep not in staged and ep != 0]
+    modes_a = {name: sum(1 for s in steps_a if s[1] == mode) for mode, name in mode_names.items()}
+
+    # ---- run B: a fresh trainer resumed from `last`, one pose-only epoch ----
+    trainer_b, _, _ = cli_train.build_trainer(cli_train.parse_args(argv(RUN_B_SETS)))
+    trainer_b.load_checkpoint(os.path.join(ckpt_dir, "last"))
+    pa, pb = trainer.ts.params(), trainer_b.ts.params()
+    assert all(torch.equal(pa[k], pb[k]) for k in pa), "resumed parameters differ"
+    for name in ("opt_joint", "opt_pose"):
+        sa, sb = getattr(trainer.ts, name), getattr(trainer_b.ts, name)
+        assert sa.count == sb.count, f"resumed {name} step counts differ"
+        assert all(torch.equal(sa.mu[k], sb.mu[k]) and torch.equal(sa.nu[k], sb.nu[k]) for k in sa.mu), name
+    assert trainer_b.epoch == trainer.epoch == EPOCHS_A, (trainer_b.epoch, trainer.epoch)
+    steps_b, _, payloads = instrument(trainer_b)
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer_b.fit(EPOCHS_A + 1, ckpt_dir=ckpt_dir)
+    torch.cuda.synchronize()
+    fit_b_s = time.perf_counter() - t0
+    launches_b = read_counts()
+    assert min(launches_b.values()) > 0, f"path T run B launched {launches_b}"
+    assert len(steps_b) == n_frames and all(s[1] == s[2] == MODE_POSE_ONLY for s in steps_b), steps_b
+    assert all(math.isfinite(s[3]) and s[4] == 0.0 for s in steps_b), steps_b
+    assert payloads == [(True, True, True)] * n_frames, f"pose-loss payloads {payloads}"
+
+    # ---- the learned-mesh instance masks, SMPL init, the test entry ----
+    t0 = time.perf_counter()
+    trainer_b.instance_mask_stage(epoch=LEARNED_MESH_EPOCH)
+    learned_mask_s = time.perf_counter() - t0
+    learned = np.load(os.path.join(run_dir, "stage_instance_mask", f"{LEARNED_MESH_EPOCH:05d}",
+                                   "all_person_smpl_mask.npy"))
+    assert learned.shape[:2] == (n_frames, trainer_b.num_person) and learned.any(), learned.shape
+
+    net = ImplicitNet.from_config(conf.model.implicit_network, device=dev,
+                                  generator=torch.Generator(dev).manual_seed(SEED))
+    pts, gt = sample_training_points(trainer_b.servers[0], 4096, np.random.default_rng(SEED))
+    held = (torch.as_tensor(pts, device=dev), torch.as_tensor(gt, device=dev), torch.zeros((4096, 3), device=dev))
+    loss0 = float(smpl_init_loss(net, *held)[0].detach())
+    t0 = time.perf_counter()
+    pretrain_smpl_init(net, trainer_b.servers[0], steps=SMPL_INIT_STEPS)
+    torch.cuda.synchronize()
+    smpl_init_s = time.perf_counter() - t0
+    loss1 = float(smpl_init_loss(net, *held)[0].detach())
+    assert math.isfinite(loss1) and loss1 < loss0, f"SMPL init loss {loss0} -> {loss1}"
+
+    t0 = time.perf_counter()
+    test_dir = cli_test.main(["--conf", os.path.join(ROOT, TRAIN_CONF), "--run_dir", run_dir, "--device", dev,
+                              "--frames", "1", *(f"--set={s}" for s in RUN_A_SETS)])
+    test_s = time.perf_counter() - t0
+    img = read_png(os.path.join(test_dir, "test_rendering", "0000.png"))
+    assert img.shape == (d.height, 2 * d.width, 3), img.shape
+    unhold()
+    assert not failures, f"path T: a kernel disagrees with its plain version: {failures}"
+    held_err = {k: max((e for key, e in held_shapes.items() if key[0] == k), default=None)
+                for k in ("nn1", "grid_trilinear")}
+    assert all(e is not None for e in held_err.values()), f"path T held no call of {held_err}"
+
+    # a peak is read per stage method; the extractions and bakes inside one show None
+    breakdown = {f"{name}@{ep}": (round(sec, 3), round(peak, 3) if name in STAGE_METHODS else None, calls)
+                 for (name, ep), (sec, peak, calls) in spent.items() if name != "train_epoch"}
+    epochs_peak = max(peak for (name, _), (_, peak, _) in spent.items() if name == "train_epoch")
+    per_frame = trainer.it_per_loop
+    depth_by_frame = [(depth_a[f * per_frame], depth_a[(f + 1) * per_frame - 1]) for f in range(n_frames)]
+    out = {
+        "setup_s": setup_s, "fit_a_s": fit_a_s, "fit_b_s": fit_b_s, "epoch_s": epoch_s,
+        "epoch_median_s": median(plain_epochs), "stage_s": stage_s, "learned_mask_s": learned_mask_s,
+        "smpl_init_s": smpl_init_s, "smpl_init_loss": (loss0, loss1), "test_s": test_s,
+        "modes_a": modes_a, "modes_b": {name: sum(1 for s in steps_b if s[1] == mode) for mode, name in mode_names.items()},
+        "launches_a": launches_a, "launches_b": launches_b, "peak_gib": peak_a, "val_psnr": psnr,
+        "steps_a": len(steps_a), "steps_b": len(steps_b), "opt_depth_by_frame": depth_by_frame,
+        "breakdown": breakdown, "epochs_peak_gib": epochs_peak, "held": held_shapes, "held_err": held_err,
+    }
+    log(f"path T run A: {EPOCHS_A} epochs in {fit_a_s:.1f} s, median epoch without a stage "
+        f"{out['epoch_median_s']:.3f} s (epoch 0 {epoch_s[0]:.3f} s), stages (seconds @ epoch) "
+        f"{ {k: round(v, 3) for k, v in stage_s.items()} }, steps per mode {modes_a}, launches over the fit "
+        f"{launches_a}, peak memory {out['peak_gib']:.3f} GiB (epochs alone {epochs_peak:.3f}), validation PSNR "
+        f"{psnr}, opt_depth loss first -> last iteration by frame "
+        f"{[(round(a, 5), round(b, 5)) for a, b in depth_by_frame]}")
+    log(f"path T run A, (seconds, peak GiB, calls) @ epoch of each stage and of the mesh extractions and grid "
+        f"bakes inside them: {breakdown}")
+    log(f"path T run B (resumed from last, params/Adam/epoch equal): {len(steps_b)} pose-only steps in "
+        f"{fit_b_s:.1f} s, payloads from the producer's snapshot, launches {launches_b}; learned-mesh instance "
+        f"masks {learned_mask_s:.1f} s; SMPL init {SMPL_INIT_STEPS} steps {smpl_init_s:.1f} s (held-out loss "
+        f"{loss0:.5f} -> {loss1:.5f}); test entry, 1 frame, {test_s:.1f} s")
+    log(f"path T: each kernel held to its plain version on the first call of each shape it was given, max abs "
+        f"error by shape: { {' '.join(map(str, k)): float(f'{e:.3g}') for k, e in held_shapes.items()} }")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -397,9 +730,14 @@ def main() -> int:
     log(f"tf32: matmul={torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}")
 
     # ---------------- 2. build ----------------
+    from multiply_tpu_torch import native
+
     libs = (*cuda_build.KERNELS, *cuda_build.VARIANTS)
     build_s, build_logs = cuda_build.build_all(libs)
-    log(f"build: {build_s:.1f} s for {', '.join(libs)}")
+    t0 = time.perf_counter()
+    native._lib()  # the host C++ of path T
+    log(f"build: {build_s:.1f} s for {', '.join(libs)}; native host library {cuda_build.BUILD_DIR}/libmultiply_host.so "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -436,7 +774,7 @@ def main() -> int:
         err_a, nd_a = check_nn1(q, verts, "nn1 P=2 V=386")
         err_a3, nd_a3 = check_nn1(q[:, :RAYS].contiguous(), verts, f"nn1 P=2 N={RAYS} V=386")
         # what a pose-only step's forward warp hands the kernel: the padded
-        # meshes, most of whose vertices are the same zero padding
+        # meshes, most of whose vertices repeat the last real one
         q_mesh = pose_loss_batch(scene, 0, np.random.default_rng(SEED), dev).verts_c.contiguous()
         err_a4, nd_a4 = check_nn1(q_mesh, verts, f"nn1 P=2 N={MESH_BUCKET} V=386 (padded pose meshes)")
         refs_big = torch.randn((6890, 3), generator=kgen, device=dev) * 0.4
@@ -522,13 +860,6 @@ def main() -> int:
     # ---------------- 5. training: the port's main path ----------------
     rng = np.random.default_rng(SEED)
     before = {k: p.detach().clone() for k, p in ts.params().items()}
-
-    def zero_counts():
-        knn_cuda.nn1.launches = 0
-        grid_cuda.grid_trilinear.launches = 0
-
-    def read_counts():
-        return {"nn1": knn_cuda.nn1.launches, "grid_trilinear": grid_cuda.grid_trilinear.launches}
 
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -671,10 +1002,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         run_variant(name, model_conf_with(conf, **updates), groups, scene, state, dev, SEED + 10 + i)
 
-    launches_by_path = {"parity": launches, "fast": launches_f, "pose": launches_p}
-    steps_by_path = {"parity": STEPS, "fast": STEPS_FAST, "pose": STEPS_POSE}
-    per_step = {path: {k: n / steps_by_path[path] for k, n in counts.items()}
-                for path, counts in launches_by_path.items()}
+    # ---------------- 9. path T: the trainer ----------------
+    torch.cuda.empty_cache()
+    path_t = run_path_t()
+
+    launches_by_path = {"parity": launches, "fast": launches_f, "pose": launches_p,
+                        "trainer": path_t["launches_a"], "trainer_pose": path_t["launches_b"]}
+    steps_by_path = {"parity": STEPS, "fast": STEPS_FAST, "pose": STEPS_POSE,
+                     "trainer": path_t["steps_a"], "trainer_pose": path_t["steps_b"]}
+    # the trainer's counts hold its stages' launches too: per step only for the step paths
+    per_step = {path: {k: n / steps_by_path[path] for k, n in launches_by_path[path].items()}
+                for path in ("parity", "fast", "pose")}
     log(f"kernel launches by path: {launches_by_path} over steps {steps_by_path}")
 
     kernels = [
@@ -685,7 +1023,10 @@ def main() -> int:
             "launches": launches["nn1"], "launches_per_step": per_step["parity"]["nn1"],
             "launches_by_path": {k: v["nn1"] for k, v in launches_by_path.items()}, "steps_by_path": steps_by_path,
             "launches_per_step_by_path": {k: v["nn1"] for k, v in per_step.items()},
-            "max_abs_err": max(err_a, err_a3, err_a4), "max_err": max(err_a, err_a3, err_a4),
+            "max_abs_err": max(err_a, err_a3, err_a4, path_t["held_err"]["nn1"]),
+            "max_err": max(err_a, err_a3, err_a4, path_t["held_err"]["nn1"]),
+            "max_abs_err_path_t": path_t["held_err"]["nn1"],
+            "shapes_held_path_t": sum(1 for k in path_t["held"] if k[0] == "nn1"),
             "max_abs_err_pose_meshes": err_a4, "ms_pose_meshes": t_a4, "ms": t_a, "kernel_ms": t_a,
             "plain_ms": t_a_plain, "bound_ms": bound_a,
             "bound_by": "operations" if a_ops / PEAK_FP32_FLOPS > a_bytes / PEAK_BYTES else "bytes",
@@ -702,7 +1043,11 @@ def main() -> int:
             "launches_by_path": {k: v["grid_trilinear"] for k, v in launches_by_path.items()},
             "steps_by_path": steps_by_path,
             "launches_per_step_by_path": {k: v["grid_trilinear"] for k, v in per_step.items()},
-            "max_abs_err": max(err_b, err_b1), "max_err": max(err_b, err_b1), "ms": t_b, "kernel_ms": t_b,
+            "max_abs_err": max(err_b, err_b1, path_t["held_err"]["grid_trilinear"]),
+            "max_err": max(err_b, err_b1, path_t["held_err"]["grid_trilinear"]),
+            "max_abs_err_path_t": path_t["held_err"]["grid_trilinear"],
+            "shapes_held_path_t": sum(1 for k in path_t["held"] if k[0] == "grid_trilinear"),
+            "ms": t_b, "kernel_ms": t_b,
             "plain_ms": t_b_plain, "bound_ms": bound_b,
             "bound_by": "operations" if b_ops / PEAK_FP32_FLOPS > b_bytes / PEAK_BYTES else "bytes",
             "library_ms": t_b_lib, "device_ms": dev_b, "host_us": host_b, "host_us_best": host_b_best,

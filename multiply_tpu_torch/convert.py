@@ -15,6 +15,7 @@ Port parameter names map to pytree paths as
   net.frame_latent, net.beta, net.person_latent -> net/<the same name>
   body.<field>                         -> body/<field>
 A shared shape net (`use_person_encoder`) has no person axis on either side.
+Adam moments map like their parameters (`train_state_from_jax`).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from .body.server import SMPLServer
 from .body.smpl import BodyModel
+from .engine.optim import AdamState
 from .models.deformer import SMPLDeformer
 from .models.renderer import PersonState
 
@@ -113,3 +115,27 @@ def person_state_from_jax(state, device="cuda") -> PersonState:
         cano_grid={k: _t(v, device) for k, v in state.cano_grid.items()},
         surface_sample_logits=_t(state.surface_sample_logits, device),
     )
+
+
+def train_state_from_jax(ts, jax_ts) -> None:
+    """Carry a whole JAX `TrainState` (numpy leaves) into the port's `ts`, in
+    place: the parameters, both Adam states (moments and per-leaf step
+    counts) and the epoch, so that a JAX run resumes in the port."""
+    params = ts.params()
+    load_params(params, jax_ts.params)
+
+    def adam(state, names, wrap):
+        mu, nu, count = {}, {}, {}
+        for name in names:
+            p = params[name]
+            for out, tree in ((mu, state.mu), (nu, state.nu)):
+                value = flax_leaf(wrap(tree), name)
+                if flax_path(name)[1]:
+                    value = np.swapaxes(value, -1, -2)
+                out[name] = torch.tensor(np.array(value), dtype=p.dtype, device=p.device)
+            count[name] = int(flax_leaf(wrap(state.count), name))
+        return AdamState(mu, nu, count)
+
+    ts.opt_joint = adam(jax_ts.opt_joint, list(params), lambda t: t)
+    ts.opt_pose = adam(jax_ts.opt_pose, [k for k in params if k.startswith("body.")], lambda t: {"body": t})
+    ts.epoch = int(jax_ts.epoch)

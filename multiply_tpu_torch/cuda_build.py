@@ -6,6 +6,11 @@ build runs at first use, never at import; `build_all` starts one `nvcc` per
 source at once. A library is rebuilt when its source is newer than it.
 `VARIANTS` names further libraries built from a kernel's source with extra
 flags; they serve checks and measurements, not the port's paths.
+
+`build_host` compiles host C++ (the native mesh and raster code under
+`native/src`) into one library in `_build`, with `nvcc` as the compiler
+driver where the CUDA toolkit is installed and `c++` where it is not. It
+takes the kernels' build lock.
 """
 
 from __future__ import annotations
@@ -34,12 +39,16 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def _cuda_home() -> str | None:
     from torch.utils.cpp_extension import CUDA_HOME
 
-    if CUDA_HOME is None:
+    return CUDA_HOME
+
+
+def _nvcc() -> str:
+    if _cuda_home() is None:
         raise RuntimeError("no CUDA toolkit found: nvcc is needed to build the kernels")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
+    return os.path.join(_cuda_home(), "bin", "nvcc")
 
 
 def _paths(name: str) -> tuple[str, str]:
@@ -92,6 +101,26 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_paths(name)[1])
         _libs[name] = lib
         return lib
+
+
+def build_host(name: str, sources: list[str]) -> str:
+    """Compile C++ `sources` into `_build/lib<name>.so` unless it is newer than
+    every source; returns the library's path."""
+    out = os.path.join(BUILD_DIR, f"lib{name}.so")
+    with _lock:
+        if os.path.exists(out) and all(os.path.getmtime(out) >= os.path.getmtime(s) for s in sources):
+            return out
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        if _cuda_home() is not None:
+            cmd = [_nvcc(), "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *sources]
+        else:
+            cmd = ["c++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", tmp, *sources]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building lib{name}.so failed:\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+        return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -39,6 +39,7 @@ OUTLIER_SDF = 4.0  # SDF given to KNN outliers at eval
 N_EIKONAL = 512  # eikonal samples per person
 N_ZERO_POSE = 2000  # canonical vertices per person in the zero-pose term
 ID_LATENT = 64  # width of a person's identity latent and of a tri-plane feature
+IMPLICIT_MODULES = ("fg_implicit", "triplane", "offset_head", "beta_encoder")  # what `_implicit` reads
 
 
 class PersonState(NamedTuple):
@@ -189,10 +190,9 @@ class MultiplyRenderer(nn.Module):
     def implicit_bundle(self, dtype: torch.dtype) -> dict:
         """Every leaf that `_implicit` reads, cast to `dtype` once and cut from
         the graph: {module name: {parameter name: tensor}}."""
-        names = ("fg_implicit", "triplane", "offset_head", "beta_encoder")
         return {
             name: {k: p.detach().to(dtype) for k, p in getattr(self, name).named_parameters()}
-            for name in names if getattr(self, name) is not None
+            for name in IMPLICIT_MODULES if getattr(self, name) is not None
         }
 
     def _implicit(self, x, cond_vec, betas=None, bundle: dict | None = None):

@@ -297,3 +297,88 @@ def assert_leaf_close(name, got, want, rel, atol=0.0):
     err = np.abs(got - want).max() if got.size else 0.0
     bound = rel * np.abs(want).max() + atol if want.size else atol
     assert err <= bound, f"{name}: max err {err:.3g} > {bound:.3g}"
+
+
+def assert_update_matches(name, before, got, want, jax_grads, port_grads, step, grad_rel=5e-2):
+    """One parameter leaf's change over one or more Adam steps (`got - before`)
+    against the JAX package's from the same start (`want - before`), entry by
+    entry, within a tenth of one Adam step (`step`: the learning rate times the
+    leaf's factor) plus one f32 spacing of the value, which each side rounds
+    its update to. `jax_grads` and `port_grads` hold each step's gradient
+    (pytree layout).
+
+    Each step's gradients must first agree within `grad_rel` of JAX's largest
+    on the leaf: summed in another order, through a sampler whose discrete
+    choices follow the f32 rounding, they part by a few percent of it on tiny
+    programs. Adam normalises each entry's step, so an entry whose gradient is
+    no larger than that noise moves by up to 2 x step either way: an entry
+    whose two gradients part by more than a tenth of JAX's in some step is
+    exempt, and the test shows them when any other entry parts. Returns the
+    number of exempt entries that parted."""
+    before, got, want = (np.asarray(a, np.float64) for a in (before, got, want))
+    assert got.shape == want.shape == before.shape, (name, got.shape, want.shape, before.shape)
+    gj, gp = (np.stack([np.broadcast_to(np.asarray(x, np.float64), got.shape) for x in gs])
+              for gs in (jax_grads, port_grads))
+    assert len(gj) == len(gp), (name, len(gj), len(gp))
+    for t, (a, b) in enumerate(zip(gj, gp)):
+        err, top = np.abs(b - a).max(initial=0.0), np.abs(a).max(initial=0.0)
+        assert err <= grad_rel * top, f"{name}: step {t}'s gradient parts from JAX's by {err:.3g} > {grad_rel} x {top:.3g}"
+    gap = np.abs((got - before) - (want - before))
+    bound = 0.1 * step + np.spacing(np.maximum(np.abs(got), np.abs(want)).astype(np.float32))
+    unresolved = (np.abs(gp - gj) > 0.1 * np.abs(gj)).any(axis=0)
+    off = gap > bound
+    bad = off & ~unresolved
+    assert not bad.any(), (
+        f"{name}: {int(bad.sum())} of {gap.size} entries part from JAX's update by up to {gap[bad].max():.3g} "
+        f"(a tenth of a step is {0.1 * step:.3g}; JAX's update there {(want - before)[bad][:4]}, the port's "
+        f"{(got - before)[bad][:4]}; the gradients by step, JAX's {gj[:, bad][:, :4].tolist()}, the port's "
+        f"{gp[:, bad][:, :4].tolist()})"
+    )
+    return int((off & unresolved).sum())
+
+
+def adam_step_grads(names, pairs, b1=0.9) -> dict:
+    """The gradient of one JAX Adam step per port parameter name, recovered
+    from the optimizer states around it: `pairs` holds (before, after) of each
+    optimizer (numpy pytrees of `AdamState`). A leaf whose count advanced saw
+    (mu' - b1 mu) / (1 - b1), and exactly zero where mu' is b1 mu as f32
+    rounds it; the others saw zero."""
+    from multiply_tpu_torch import convert
+
+    def holds(state, name):
+        try:
+            convert.flax_leaf(state.count, name)
+            return True
+        except (KeyError, AttributeError):  # an optimizer over part of the parameters
+            return False
+
+    out = {}
+    for name in names:
+        held = [(s0, s1) for s0, s1 in pairs if holds(s0, name)]
+        assert held, name
+        g = np.zeros(convert.flax_leaf(held[0][0].mu, name).shape)
+        for s0, s1 in held:
+            if int(convert.flax_leaf(s1.count, name)) != int(convert.flax_leaf(s0.count, name)):
+                m0, m1 = (convert.flax_leaf(s.mu, name).astype(np.float32) for s in (s0, s1))
+                decayed = np.float32(b1) * m0
+                g = g + np.where(m1 == decayed, 0.0, (m1.astype(np.float64) - decayed) / (1 - b1))
+        out[name] = g
+    return out
+
+
+def record_adam_grads(monkeypatch, module, prefix: str = "") -> list:
+    """Record the gradients that each call of `module.adam_update` (the port's
+    Adam) is handed for the leaves it may update, in pytree layout under
+    `prefix + name`, zero on the leaves the call leaves inactive; returns the
+    list it fills, one dict a call."""
+    from multiply_tpu_torch import convert
+
+    calls, adam_update = [], module.adam_update
+
+    def recorded(grads, state, params, lr, lr_factors, active, *args, **kw):
+        calls.append({prefix + k: convert.to_flax_layout(prefix + k, grads[k]) * float(bool(active[k]))
+                      for k in params})
+        return adam_update(grads, state, params, lr, lr_factors, active, *args, **kw)
+
+    monkeypatch.setattr(module, "adam_update", recorded)
+    return calls

@@ -7,6 +7,8 @@ a card and no JAX it runs alone:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -232,3 +234,49 @@ def test_fast_preset_step_on_card_stays_in_a_band_around_cpu(cuda_device):
     with pytest.raises(TypeError):
         knn_cuda.nn1(torch.zeros((8, 3), device=cuda_device, dtype=torch.bfloat16),
                      torch.zeros((4, 3), device=cuda_device, dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_native_build_and_generate_mesh_on_card(cuda_device):
+    """The host C++ builds (through nvcc where the toolkit is) and meshes an
+    SDF that the card evaluates, as the CPU does."""
+    from multiply_tpu_torch import cuda_build, native
+    from multiply_tpu_torch.engine.mesh_export import generate_mesh
+
+    native._lib()
+    assert os.path.exists(os.path.join(cuda_build.BUILD_DIR, "libmultiply_host.so"))
+    centre = torch.tensor([0.1, -0.05, 0.02])
+
+    def sdf_on(dev):
+        c = centre.to(dev)
+        return lambda pts: ((torch.as_tensor(pts, device=dev) - c).norm(dim=-1) - 0.4).cpu().numpy()
+
+    hint = np.array([[-0.6, -0.6, -0.6], [0.6, 0.6, 0.6]], np.float32)
+    v, f = generate_mesh(sdf_on(cuda_device), hint, res_up=1)
+    vc, fc = generate_mesh(sdf_on("cpu"), hint, res_up=1)
+    assert len(f) > 1000 and np.array_equal(f, fc)
+    np.testing.assert_allclose(v, vc, atol=1e-5)
+    r = np.linalg.norm(v - centre.numpy(), axis=-1)
+    assert abs(np.median(r) - 0.4) < 0.01
+
+
+@pytest.mark.cuda
+def test_tiny_fit_on_card_crosses_epoch_0(cuda_device, tmp_path):
+    """The training entry on the card at tiny widths: epoch 0's instance-mask
+    and SAM stages, validation render and meshes, checkpoint; both kernels ran."""
+    from multiply_tpu_torch.cli import train as cli_train
+
+    conf = os.path.join(os.path.dirname(__file__), "..", "confs", "synthetic_base.yaml")
+    sets = ("model.implicit_network.dims=[64,64]", "model.implicit_network.skip_in=[]",
+            "model.cano_mesh_res_up=1", "dataset.train.end_frame=2", "model.num_training_frames=2")
+    knn_cuda.nn1.launches = grid_cuda.grid_trilinear.launches = 0
+    trainer = cli_train.main(["--conf", conf, "--run_dir", str(tmp_path), "--max_epochs", "1",
+                              *(f"--set={s}" for s in sets)])
+    assert trainer.epoch == 1 and trainer.device.type == "cuda"
+    assert knn_cuda.nn1.launches > 0 and grid_cuda.grid_trilinear.launches > 0
+    for rel in ("stage_instance_mask/00000/all_person_smpl_mask.npy", "stage_sam_mask/00000/sam_opt_mask.npy",
+                "val/epoch_00000.png", "val/epoch_00000_person_0.ply", "checkpoints/epoch_00000",
+                "checkpoints/last"):
+        assert os.path.exists(os.path.join(tmp_path, rel)), rel
+    with open(os.path.join(tmp_path, "metrics.jsonl")) as f:
+        assert '"val_psnr"' in f.read()

@@ -209,12 +209,17 @@ def test_adam_and_lr_schedule_match_jax():
 def test_config_loads_like_jax_and_unported_options_raise():
     for path in ("confs/taichi01_base.yaml", "confs/model/taichi01_model.yaml"):
         assert load_config(path).to_dict() == jax_load_config(path).to_dict()
-    # what the port still refuses: the quaternion camera pose (it belongs to
-    # the data layer) and mode strings that the JAX package does not know either
+    # the quaternion camera pose came with the data layer: a (7,) pose gives
+    # the rays of its 4x4 form; what the port still refuses are mode strings
+    # that the JAX package does not know either
     from multiply_tpu_torch.utils.cameras import get_camera_params
 
-    with pytest.raises(NotImplementedError):
-        get_camera_params(torch.zeros((4, 2)), torch.zeros(7), torch.eye(3))
+    uv = torch.rand((4, 2)) * 10
+    quat = torch.tensor([1.0, 0.0, 0.0, 0.0, 0.3, -0.2, 1.5])
+    pose = torch.eye(4)
+    pose[:3, 3] = quat[4:]
+    for got, want in zip(get_camera_params(uv, quat, torch.eye(3)), get_camera_params(uv, pose, torch.eye(3))):
+        torch.testing.assert_close(got, want)
     with pytest.raises(NotImplementedError):
         networks.RenderingNet(mode="view_only", device="cpu")
     # every option that was refused before now builds
