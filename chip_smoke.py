@@ -53,10 +53,24 @@ Phases, each fatal on failure:
      output. Asserts every artifact, every step's finite loss, the mode
      of every step against `_select_mode` and that the mesh refresh changed
      the grid the step reads; prints seconds per epoch and per stage, steps
-     per mode, the kernels' launches, peak memory and the validation PSNR.
-Each of the paths 5-7 and 9 zeroes the kernels' launch counters just before
-it and reads them just after. Prints the `{"kernels": [...]}` line, then the
-nvidia-smi line, then `{"ok": true, "device": {...}}` as the last line.
+     per mode, the kernels' launches, peak memory and the validation PSNR;
+ 10. path S, the SAM refinement path (`run_path_s`): `vit_h` with seeded
+     random weights (non-zero `pos_embed` and rel-pos tables) saved in the
+     official `segment_anything` layout; one 270x360 frame encoded in f32, in
+     float64 and with TF32 allowed, the f32 error held to SAM_F64_TOL and
+     TF32's required to exceed it; encode and `predict` timed; then the
+     training entry's code on path T's configuration with `--set
+     sam_checkpoint=<file>` for epochs 0-1: the stage must be `SamSegmenter`
+     and write finite (2, 2, 270, 360) logits that the sequence picks up and
+     epoch 1 trains on; prints the encoder's parameters, FLOP count and bound,
+     the encode and predict times, the stage's seconds and the peak memory of
+     the encode and of the stage. The checkpoint file is deleted after;
+ 11. `cli/train.py --profile 3` on path T's configuration and its table of
+     device time by category.
+Each of the paths 5-7, 9 and 10 zeroes the kernels' launch counters just
+before it and reads them just after. Prints the `{"kernels": [...]}` line,
+then the nvidia-smi line, then `{"ok": true, "device": {...}}` as the last
+line.
 """
 
 import json
@@ -91,6 +105,14 @@ RUN_B_SETS = ("model.depth_end=false", "model.pose_start_epoch=1", "model.pose_o
 EPOCHS_A = 21
 SMPL_INIT_STEPS = 50
 LEARNED_MESH_EPOCH = 191  # the instance-mask stage warps learned meshes after epoch 190
+# path S: the SAM refinement path at vit_h width, random weights in the official layout
+SAM_VARIANT = "vit_h"
+SAM_EPOCHS = 2  # epoch 0 (instance masks + SAM stage), then epoch 1 trains on the refined masks
+# max |f32 - f64| of the encoder's output (unit scale after its last LayerNorm): on the H100 f32 gave
+# 1.23e-5 and TF32 5.17e-3 (NVIDIA H100 80GB HBM3 at 700 W, PERF.md §5); the bound sits 20x above the one and
+# 20x below the other
+SAM_F64_TOL = 2.5e-4
+PROFILE_STEPS = 3
 
 
 def log(*args):
@@ -229,6 +251,8 @@ def step_breakdown(step_fn, top=10, with_cpu=True):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from multiply_tpu_torch.utils.profiling import HAND_WRITTEN, is_gemm
+
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if with_cpu else [ProfilerActivity.CUDA]
     with profile(activities=activities) as prof:
@@ -239,10 +263,9 @@ def step_breakdown(step_fn, top=10, with_cpu=True):
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     kernels.sort(key=lambda e: -e.self_device_time_total)
-    ours = [e for e in kernels if "nn1_kernel" in e.key or "grid_trilinear_kernel" in e.key]
+    ours = [e for e in kernels if any(k in e.key for k in HAND_WRITTEN)]
     rows = [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in kernels[:top] + ours]
-    gemms = [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in kernels
-             if any(t in e.key.lower() for t in ("gemm", "gemv", "xmma", "cutlass"))]
+    gemms = [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in kernels if is_gemm(e.key)]
     return wall, busy, rows, len(kernels), sum(e.count for e in kernels), gemms
 
 
@@ -700,6 +723,234 @@ def run_path_t():
     return out
 
 
+def sam_encoder_flops(variant, img=1024, window=14):
+    """Multiply-adds x 2 of one image through the ViT encoder at this input:
+    the windowed blocks' qkv and projection on the padded grid, the MLPs on the
+    unpadded one, attention and its rel-pos terms per window or over the grid,
+    the patch embedding and the neck (norms, softmax and GELU not counted)."""
+    from multiply_tpu_torch.models.sam import VIT_CONFIGS
+
+    cfg = VIT_CONFIGS[variant]
+    C, g = cfg["embed_dim"], img // 16
+    T, padded = g * g, -(-g // window) * window
+    n_win, w2 = (padded // window) ** 2, window * window
+    flops = 2 * T * C * 3 * 16 * 16 + 2 * T * C * 256 + 2 * T * 256 * 256 * 9
+    for i in range(cfg["depth"]):
+        tokens = T if i in cfg["global_attn"] else padded * padded
+        flops += 2 * tokens * C * 4 * C + 2 * T * C * 8 * C  # qkv + proj, MLP
+        if i in cfg["global_attn"]:
+            flops += 4 * T * T * C + 4 * T * g * C  # logits + attn @ v, two rel-pos einsums
+        else:
+            flops += n_win * (4 * w2 * w2 * C + 4 * w2 * window * C)
+    return flops
+
+
+def run_path_s():
+    """Path S: the SAM refinement path. (a) `random_sam` at vit_h width with
+    random `pos_embed` and rel-pos tables, saved in the official layout; the
+    model turns TF32 off as it is built, even where it was on; (b) one frame
+    encoded in f32, in float64 and with TF32 allowed, the f32 error held to
+    SAM_F64_TOL and below TF32's; encode and predict timed; (c) the training
+    entry's code with `--set sam_checkpoint=<file>` for epochs 0-1: the stage
+    must be `SamSegmenter`, write (F, P, H, W) finite logits that the sequence
+    picks up, and each step of both epochs must train in the mode
+    `_select_mode` gives, on finite losses. Returns a dict of what it
+    measured."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from multiply_tpu_torch.cli import train as cli_train
+    from multiply_tpu_torch.engine.instance_masks import build_sam_prompts
+    from multiply_tpu_torch.engine.sam_stage import SamSegmenter
+    from multiply_tpu_torch.models import sam as sam_model
+    from multiply_tpu_torch.utils.logging import profile_trace
+    from multiply_tpu_torch.utils.profiling import summarize_trace
+
+    dev, variant = "cuda", SAM_VARIANT
+    run_dir = os.path.join(ROOT, "outputs", "chip_smoke_path_s")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    ckpt = os.path.join(run_dir, f"sam_{variant}_random.pth")
+    out = {}
+    try:
+        # ---- (a) weights ----
+        t0 = time.perf_counter()
+        gen = torch.Generator(dev).manual_seed(SEED)
+        # cuDNN's own default: the model, not an earlier phase, must turn TF32 off
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        model = sam_model.random_sam(variant, gen, device=dev)
+        flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        assert flags == (False, False), f"TF32 (matmul, cuDNN) {flags} after building the SAM model"
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith(("pos_embed", "rel_pos_h", "rel_pos_w")):
+                    p.normal_(0.0, 0.02, generator=gen)
+        torch.save(model.state_dict(), ckpt)
+        out["n_params_encoder"] = sum(p.numel() for p in model.image_encoder.parameters())
+        out["n_params"] = sum(p.numel() for p in model.parameters())
+        out["weights_s"] = time.perf_counter() - t0
+        log(f"path S: {variant} ({out['n_params_encoder'] / 1e6:.3f} M encoder parameters, "
+            f"{out['n_params'] / 1e6:.3f} M in all) built and saved in the official layout in "
+            f"{out['weights_s']:.1f} s ({os.path.getsize(ckpt) / 2**30:.3f} GiB)")
+
+        # ---- (b) one frame: f32 against float64 and TF32; times ----
+        pred = sam_model.SamPredictor(model)
+        frame = (np.random.default_rng(SEED).random((270, 360, 3)) * 255).astype(np.uint8)
+        x = pred.preprocess(frame)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            e32 = model.encode_image(x)
+            torch.cuda.synchronize()
+            out["encode_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            out["encode_ms"] = cuda_time_ms(lambda: model.encode_image(x), reps=5, warmup=1)
+            flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+            try:
+                e_tf32 = model.encode_image(x)
+                out["encode_tf32_ms"] = cuda_time_ms(lambda: model.encode_image(x), reps=5, warmup=1)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+            enc64 = copy.deepcopy(model.image_encoder).double()
+            e64 = enc64(x.double())
+            del enc64
+            err32 = (e32.double() - e64).abs().max().item()
+            err_tf32 = (e_tf32.double() - e64).abs().max().item()
+            scale = e64.abs().max().item()
+        assert e32.shape == (1, 64, 64, 256) and torch.isfinite(e32).all(), tuple(e32.shape)
+        out.update(err_f32=err32, err_tf32=err_tf32, out_max=scale)
+        log(f"path S encode: max |f32 - f64| {err32:.3g}, max |tf32 - f64| {err_tf32:.3g} (output max |f64| "
+            f"{scale:.3g}); tolerance {SAM_F64_TOL}; with TF32 allowed (not used) {out['encode_tf32_ms']:.2f} ms")
+        assert err32 <= SAM_F64_TOL, f"SAM encoder f32 differs from f64 by {err32} > {SAM_F64_TOL}"
+        assert err_tf32 > SAM_F64_TOL, f"TF32 passes the f64 check ({err_tf32}): the tolerance tells nothing"
+        del e_tf32, e64
+
+        # one predict with the prompts the stage would build, on the encoded frame
+        pred.set_image(frame)
+        masks = np.zeros((2, 270, 360), bool)
+        masks[0, 60:250, 40:170], masks[1, 50:240, 190:330] = True, True
+        kps = np.stack([np.stack([np.linspace(50, 160, 27), np.linspace(70, 240, 27)], -1),
+                        np.stack([np.linspace(200, 320, 27), np.linspace(60, 230, 27)], -1)]).astype(np.int32)
+        pr = build_sam_prompts(masks, kps, np.random.default_rng(SEED))[0]
+        low = pred.predict(pr["points"], pr["labels"], pr["box"], pr["mask_prior_logits"])
+        assert low.shape == (256, 256) and np.isfinite(low).all(), low.shape
+
+        def predict():
+            return pred.predict(pr["points"], pr["labels"], pr["box"], low)
+
+        out["predict_ms"] = cuda_time_ms(predict, reps=20, warmup=2)
+        # where an encode's and a predict's time goes: kernels by category, wall against device busy
+        with torch.inference_mode():
+            trace_dir = os.path.join(run_dir, "encode_trace")
+            with profile_trace(trace_dir):
+                model.encode_image(x)
+                torch.cuda.synchronize()
+            out["encode_categories"] = summarize_trace(trace_dir)
+            wall_e, busy_e, rows_e, _, n_e, _ = step_breakdown(lambda: model.encode_image(x), top=6)
+        wall_p, busy_p, _, _, n_p, _ = step_breakdown(predict, top=1)
+        out.update(encode_wall_ms=wall_e, encode_busy_ms=busy_e, encode_launches=n_e, predict_wall_ms=wall_p,
+                   predict_busy_ms=busy_p, predict_launches=n_p)
+        log(f"path S profiled encode: wall {wall_e:.2f} ms, device busy {busy_e:.2f} ms, {n_e} launches; by category "
+            f"{[(r['category'], round(r['total_ms'], 3), r['count']) for r in out['encode_categories']]}; top kernels:")
+        for name, ms, count in rows_e:
+            log(f"  {ms:9.3f} ms  x{count:<5d} {name}")
+        log(f"path S profiled predict: wall {wall_p:.3f} ms, device busy {busy_p:.3f} ms, {n_p} launches")
+        flops = sam_encoder_flops(variant)
+        out.update(encoder_flops=flops, encoder_bound_ms=flops / PEAK_FP32_FLOPS * 1e3)
+        log(f"path S: encode {out['encode_ms']:.2f} ms a frame (CUDA events, median of 5; bound "
+            f"{out['encoder_bound_ms']:.2f} ms = {flops / 1e12:.4f} TFLOP at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s f32, "
+            f"by operations), peak memory {out['encode_peak_gib']:.3f} GiB; predict {out['predict_ms']:.3f} ms a call "
+            f"({len(pr['points'])} points + box, mask input)")
+        del model, pred, e32, x
+        torch.cuda.empty_cache()
+
+        # ---- (c) the training entry with the checkpoint, epochs 0-1 ----
+        argv = ["--conf", os.path.join(ROOT, TRAIN_CONF), "--run_dir", run_dir, "--device", dev,
+                *(f"--set={s}" for s in (*RUN_A_SETS, f"sam_checkpoint={ckpt}"))]
+        t0 = time.perf_counter()
+        trainer, _, _ = cli_train.build_trainer(cli_train.parse_args(argv))
+        out["setup_s"] = time.perf_counter() - t0
+        seg = trainer.segmenter
+        assert isinstance(seg, SamSegmenter), f"the SAM stage is {type(seg).__name__}"
+        calls = []
+        predict_fn = seg.predictor.predict
+
+        def counted(*args, **kw):
+            calls.append(1)
+            return predict_fn(*args, **kw)
+
+        seg.predictor.predict = counted
+        sam_stage = trainer.sam_stage
+
+        def measured_sam_stage(*args, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            result = sam_stage(*args, **kw)
+            torch.cuda.synchronize()
+            out["stage_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            return result
+
+        trainer.sam_stage = measured_sam_stage
+        steps, _, _ = instrument(trainer)
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer.fit(SAM_EPOCHS, render_val=False)
+        torch.cuda.synchronize()
+        out["fit_s"] = time.perf_counter() - t0
+        out["launches"] = read_counts()
+        assert min(out["launches"].values()) > 0, f"path S launched {out['launches']}"
+        n_frames, n_persons = len(trainer.seq), trainer.num_person
+        sam_file = os.path.join(run_dir, "stage_sam_mask", "00000", "sam_opt_mask.npy")
+        refined = np.load(sam_file)
+        H, W = trainer.seq.get_eval_item(0)["img_size"]
+        assert refined.shape == (n_frames, n_persons, H, W) and np.isfinite(refined).all(), refined.shape
+        assert len(calls) == 3 * n_frames * n_persons, f"{len(calls)} predict calls"
+        assert len(steps) == SAM_EPOCHS * n_frames, f"path S took {len(steps)} steps"
+        for ep, mode, expected, loss, skipped in steps:
+            assert mode == expected, f"path S epoch {ep}: step mode {mode}, _select_mode gives {expected}"
+            assert math.isfinite(loss) and skipped == 0.0, f"path S epoch {ep}: loss {loss}, update skipped {skipped}"
+        seq = trainer.seq
+        assert seq._sam_path == sam_file and np.array_equal(seq._sam_masks, refined.transpose(0, 2, 3, 1)), \
+            "the sequence did not pick the refined masks up"
+        metrics = read_metrics(run_dir)
+        sam_s = [r["sam_seconds"] for r in metrics if "sam_seconds" in r]
+        losses = {r["epoch"]: r["loss"] for r in metrics if "loss" in r and "epoch_seconds" in r}
+        assert len(sam_s) == 1 and math.isfinite(losses[1]), (sam_s, losses)
+        out.update(sam_stage_s=sam_s[0], losses=losses, shape=refined.shape, predict_calls=len(calls), steps=len(steps),
+                   modes=[(ep, mode) for ep, mode, *_ in steps],
+                   positive_share=float((refined > 0).mean()))
+        log(f"path S: entry set-up {out['setup_s']:.1f} s (checkpoint loaded strictly), epochs 0-{SAM_EPOCHS - 1} in "
+            f"{out['fit_s']:.1f} s; SAM stage {out['sam_stage_s']:.3f} s (metrics.jsonl) for {n_frames} frames x "
+            f"{n_persons} persons ({len(calls)} predict calls), peak memory {out['stage_peak_gib']:.3f} GiB; "
+            f"sam_opt_mask {refined.shape}, finite, {out['positive_share']:.3f} of it positive, picked up by the "
+            f"sequence; {len(steps)} steps, (epoch, mode) {out['modes']}; epoch losses {losses}; kernel launches "
+            f"{out['launches']}")
+        del trainer, seg, seq
+    finally:
+        if os.path.exists(ckpt):
+            os.remove(ckpt)
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_profile():
+    """`cli/train.py --profile N` on path T's configuration: its table, read
+    back from `<run_dir>/profile/summary.json`."""
+    from multiply_tpu_torch.cli import train as cli_train
+
+    run_dir = os.path.join(ROOT, "outputs", "chip_smoke_profile")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    cli_train.main(["--conf", os.path.join(ROOT, TRAIN_CONF), "--run_dir", run_dir, "--device", "cuda",
+                    "--profile", str(PROFILE_STEPS), *(f"--set={s}" for s in RUN_A_SETS)])
+    with open(os.path.join(run_dir, "profile", "summary.json")) as f:
+        summary = json.load(f)
+    cats = {r["category"] for r in summary["rows"]}
+    assert summary["steps"] == PROFILE_STEPS and {"gemm", "nn1_kernel", "grid_trilinear_kernel"} <= cats, summary
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1006,10 +1257,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     path_t = run_path_t()
 
+    # ---------------- 10. path S: the SAM refinement path ----------------
+    path_s = run_path_s()
+
+    # ---------------- 11. --profile on path T's configuration ----------------
+    t0 = time.perf_counter()
+    prof = run_profile()
+    log(f"--profile {prof['steps']} ({time.perf_counter() - t0:.1f} s with its set-up): {prof['wall_s']:.3f} s "
+        f"traced; device time by category:")
+    for r in prof["rows"]:
+        log(f"  {r['category']:<24} {r['total_ms']:10.3f} ms  x{r['count']:<6d} {r['pct']:5.1f}%")
+
     launches_by_path = {"parity": launches, "fast": launches_f, "pose": launches_p,
-                        "trainer": path_t["launches_a"], "trainer_pose": path_t["launches_b"]}
+                        "trainer": path_t["launches_a"], "trainer_pose": path_t["launches_b"],
+                        "sam": path_s["launches"]}
     steps_by_path = {"parity": STEPS, "fast": STEPS_FAST, "pose": STEPS_POSE,
-                     "trainer": path_t["steps_a"], "trainer_pose": path_t["steps_b"]}
+                     "trainer": path_t["steps_a"], "trainer_pose": path_t["steps_b"],
+                     "sam": path_s["steps"]}
     # the trainer's counts hold its stages' launches too: per step only for the step paths
     per_step = {path: {k: n / steps_by_path[path] for k, n in launches_by_path[path].items()}
                 for path in ("parity", "fast", "pose")}

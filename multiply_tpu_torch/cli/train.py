@@ -2,16 +2,19 @@
 
     python -m multiply_tpu_torch.cli.train --conf confs/synthetic_base.yaml [--max_epochs N]
         [--run_dir D] [--is_continue] [--data_root R] [--set model.it_per_loop=5 ...] [--device cpu]
+        [--profile N]
 
 Counterpart of the repository's `train.py`: the composed YAML config with
 dotted overrides, the sequence (the synthetic scene or a preprocessed Hi4D
-directory), per-person SMPL servers, the checkpoint-free SAM stage
-(`PriorSegmenter`) and `Trainer.fit`. Run artifacts (checkpoints, stage_*
-files, validation renders, metrics.jsonl) go to outputs/<exp>/<run>/ unless
---run_dir says otherwise. Runs on the card; `--device cpu` is for tests at
-tiny widths (`--set` them). Not ported yet, and refused rather than ignored:
-several devices (--devices), --profile and a SAM checkpoint (ROADMAP.md,
-queue 1).
+directory), per-person SMPL servers, the SAM stage and `Trainer.fit`. With a
+`sam_checkpoint` file (the official `sam_vit_h_4b8939.pth`, loaded strictly)
+the SAM stage is `SamSegmenter` over the frames; without one it is
+`PriorSegmenter`. `--profile N` traces N training steps after two warm ones,
+writes `<run_dir>/profile/summary.json` and exits. Run artifacts
+(checkpoints, stage_* files, validation renders, metrics.jsonl) go to
+outputs/<exp>/<run>/ unless --run_dir says otherwise. Runs on the card;
+`--device cpu` is for tests at tiny widths (`--set` them). Not ported yet, and
+refused rather than ignored: several devices (--devices; ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -103,33 +106,53 @@ def parse_args(argv=None):
     ap.add_argument("--run_dir", default=None)
     ap.add_argument("--is_continue", action="store_true")
     ap.add_argument("--devices", type=int, default=0, metavar="N", help=f"several devices {NOT_PORTED}")
-    ap.add_argument("--profile", type=int, default=0, metavar="N", help=f"--profile {NOT_PORTED}")
+    ap.add_argument("--profile", type=int, default=0, metavar="N",
+                    help="trace N training steps, write <run_dir>/profile/summary.json and exit")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VAL", dest="sets",
                     help="dotted config override, e.g. --set model.stage_overlap=true (YAML value; repeatable)")
     ap.add_argument("--device", default="cuda", help="torch device (cpu for tests)")
     return ap.parse_args(argv)
 
 
+def frame_images(seq) -> list:
+    """One callable per frame giving its uint8 RGB image, rgb x 255 truncated
+    as the JAX entry does."""
+    def frame(i):
+        item = seq.get_eval_item(i)
+        return (item["rgb"].reshape(*item["img_size"], 3) * 255).astype(np.uint8)
+
+    return [lambda i=i: frame(i) for i in range(len(seq))]
+
+
+def build_segmenter(conf, seq, device="cuda"):
+    """`SamSegmenter` over the frames when the configured `sam_checkpoint`
+    (top level, else under `model`) is a file, else `PriorSegmenter`."""
+    from ..engine.sam_stage import PriorSegmenter, SamSegmenter
+    from ..models.sam import build_sam_predictor
+
+    path = conf.get("sam_checkpoint", None) or conf.model.get("sam_checkpoint", None)
+    if path and os.path.exists(str(path)):
+        return SamSegmenter(build_sam_predictor(str(path), device=device), frame_images(seq))
+    why = f"sam_checkpoint={path} does not exist" if path else "no sam_checkpoint configured"
+    print(f"SAM stage: PriorSegmenter (the rendered instance masks): {why}")
+    return PriorSegmenter()
+
+
 def build_trainer(args):
     """(trainer, config, checkpoint directory) for parsed arguments; resumes
     from the latest epoch checkpoint with --is_continue or model.is_continue."""
     from ..config import load_config
-    from ..engine.sam_stage import PriorSegmenter
     from ..engine.trainer import Trainer
 
     if args.devices > 1:
         raise SystemExit(f"--devices {args.devices}: training on several devices {NOT_PORTED}")
-    if args.profile:
-        raise SystemExit(f"--profile {NOT_PORTED}")
     conf = load_config(args.conf, overrides=parse_overrides(args.sets) or None)
-    if conf.get("sam_checkpoint", None):
-        raise SystemExit(f"sam_checkpoint={conf.get('sam_checkpoint')}: the SAM segmenter {NOT_PORTED}; "
-                         "unset it to train with the rendered instance masks as the SAM stage's output")
     run_dir = args.run_dir or os.path.join("outputs", str(conf.get("exp", "exp")), str(conf.get("run", "run")))
     os.makedirs(run_dir, exist_ok=True)
     seq = build_sequence(conf, run_dir, args.data_root, device=args.device)
     trainer = Trainer(conf, seq, build_servers(conf, seq, args.device), run_dir=run_dir,
-                      segmenter=PriorSegmenter(), seed=conf.get("seed", 42), device=args.device)
+                      segmenter=build_segmenter(conf, seq, args.device), seed=conf.get("seed", 42),
+                      device=args.device)
     ckpt_dir = os.path.join(run_dir, "checkpoints")
     if args.is_continue or conf.model.get("is_continue", False):
         ckpt = latest_checkpoint(run_dir)
@@ -140,9 +163,14 @@ def build_trainer(args):
 
 
 def main(argv=None):
-    """Train as configured; returns the trainer."""
+    """Train as configured (or profile `--profile N` steps); returns the trainer."""
     args = parse_args(argv)
     trainer, conf, ckpt_dir = build_trainer(args)
+    if args.profile:
+        from ..utils.profiling import profile_training_steps
+
+        profile_training_steps(trainer, args.profile, os.path.join(trainer.run_dir, "profile"))
+        return trainer
     trainer.fit(args.max_epochs or conf.get("max_epochs", 10_000), ckpt_dir=ckpt_dir)
     return trainer
 

@@ -139,3 +139,101 @@ def train_state_from_jax(ts, jax_ts) -> None:
     ts.opt_joint = adam(jax_ts.opt_joint, list(params), lambda t: t)
     ts.opt_pose = adam(jax_ts.opt_pose, [k for k in params if k.startswith("body.")], lambda t: {"body": t})
     ts.epoch = int(jax_ts.epoch)
+
+
+def sam_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
+    """The JAX package's SAM parameters (`{"params": ...}` or its inner tree,
+    numpy leaves) -> an official `segment_anything` state dict: the inverse of
+    `multiply_tpu/models/sam.py::port_torch_checkpoint`. Dense kernels are
+    transposed, conv kernels go HWIO -> OIHW, and the transposed convs'
+    kernels are flipped back spatially and go (kh, kw, in, out) -> (in, out,
+    kh, kw). A leaf that no key takes raises."""
+    tree = params.get("params", params)
+    used: set = set()
+
+    def leaf(*path):
+        used.add(path)
+        node = tree
+        for k in path:
+            node = node[k]
+        return np.asarray(node)
+
+    def lin(*path):
+        return {"weight": leaf(*path, "kernel").T, "bias": leaf(*path, "bias")}
+
+    def conv(*path, bias=True):
+        out = {"weight": leaf(*path, "kernel").transpose(3, 2, 0, 1)}
+        return out | ({"bias": leaf(*path, "bias")} if bias else {})
+
+    def conv_t(*path):
+        return {"weight": leaf(*path, "kernel")[::-1, ::-1].transpose(2, 3, 0, 1), "bias": leaf(*path, "bias")}
+
+    def norm(*path, scale="scale"):
+        return {"weight": leaf(*path, scale), "bias": leaf(*path, "bias")}
+
+    def attn(*path):
+        return {f"{p}.{k}": v for p in ("q_proj", "k_proj", "v_proj", "out_proj") for k, v in lin(*path, p).items()}
+
+    sd: dict = {}
+
+    def put(prefix, entries):
+        sd.update({f"{prefix}.{k}": v for k, v in entries.items()})
+
+    enc = ("image_encoder",)
+    put("image_encoder.patch_embed.proj", conv(*enc, "patch_embed"))
+    sd["image_encoder.pos_embed"] = leaf(*enc, "pos_embed")
+    depth = sum(1 for k in tree["image_encoder"] if k.startswith("block"))
+    for i in range(depth):
+        pre, blk = f"image_encoder.blocks.{i}", (*enc, f"block{i}")
+        put(f"{pre}.norm1", norm(*blk, "norm1"))
+        put(f"{pre}.norm2", norm(*blk, "norm2"))
+        put(f"{pre}.attn.qkv", lin(*blk, "attn", "qkv"))
+        put(f"{pre}.attn.proj", lin(*blk, "attn", "proj"))
+        sd[f"{pre}.attn.rel_pos_h"] = leaf(*blk, "attn", "rel_pos_h")
+        sd[f"{pre}.attn.rel_pos_w"] = leaf(*blk, "attn", "rel_pos_w")
+        put(f"{pre}.mlp.lin1", lin(*blk, "mlp_lin1"))
+        put(f"{pre}.mlp.lin2", lin(*blk, "mlp_lin2"))
+    put("image_encoder.neck.0", conv(*enc, "neck_conv1", bias=False))
+    put("image_encoder.neck.1", norm(*enc, "neck_ln1", scale="weight"))
+    put("image_encoder.neck.2", conv(*enc, "neck_conv2", bias=False))
+    put("image_encoder.neck.3", norm(*enc, "neck_ln2", scale="weight"))
+
+    pe = ("prompt_encoder",)
+    sd["prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"] = leaf(*pe, "pe_gaussian")
+    points = leaf(*pe, "point_embeddings")
+    for i in range(4):
+        sd[f"prompt_encoder.point_embeddings.{i}.weight"] = points[i][None]
+    sd["prompt_encoder.not_a_point_embed.weight"] = leaf(*pe, "not_a_point")[None]
+    sd["prompt_encoder.no_mask_embed.weight"] = leaf(*pe, "no_mask")[None]
+    for idx, name in ((0, "mask_conv1"), (3, "mask_conv2"), (6, "mask_conv3")):
+        put(f"prompt_encoder.mask_downscaling.{idx}", conv(*pe, name))
+    for idx, name in ((1, "mask_ln1"), (4, "mask_ln2")):
+        put(f"prompt_encoder.mask_downscaling.{idx}", norm(*pe, name, scale="weight"))
+
+    md = ("mask_decoder",)
+    sd["mask_decoder.iou_token.weight"] = leaf(*md, "iou_token")
+    sd["mask_decoder.mask_tokens.weight"] = leaf(*md, "mask_tokens")
+    for i in range(2):
+        pre, blk = f"mask_decoder.transformer.layers.{i}", (*md, f"block{i}")
+        for official, ours in (("self_attn", "self_attn"), ("cross_attn_token_to_image", "cross_t2i"),
+                               ("cross_attn_image_to_token", "cross_i2t")):
+            put(f"{pre}.{official}", attn(*blk, ours))
+        for n in range(1, 5):
+            put(f"{pre}.norm{n}", norm(*blk, f"norm{n}"))
+        put(f"{pre}.mlp.lin1", lin(*blk, "mlp_lin1"))
+        put(f"{pre}.mlp.lin2", lin(*blk, "mlp_lin2"))
+    put("mask_decoder.transformer.final_attn_token_to_image", attn(*md, "final_t2i"))
+    put("mask_decoder.transformer.norm_final_attn", norm(*md, "final_norm"))
+    put("mask_decoder.output_upscaling.0", conv_t(*md, "upscale_conv1"))
+    put("mask_decoder.output_upscaling.1", norm(*md, "upscale_ln", scale="weight"))
+    put("mask_decoder.output_upscaling.3", conv_t(*md, "upscale_conv2"))
+    for i in range(4):
+        for j in range(3):
+            put(f"mask_decoder.output_hypernetworks_mlps.{i}.layers.{j}", lin(*md, f"hyper{i}_lin{j}"))
+    for j in range(3):
+        put(f"mask_decoder.iou_prediction_head.layers.{j}", lin(*md, f"iou_lin{j}"))
+
+    left = flax_leaf_paths(tree) - used
+    if left:
+        raise ValueError(f"SAM parameters left over: {sorted(left)[:8]}")
+    return {k: torch.tensor(np.array(v)) for k, v in sd.items()}

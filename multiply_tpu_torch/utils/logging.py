@@ -1,7 +1,7 @@
-"""Metrics logging: one JSON line per call, appended to `<run_dir>/metrics.jsonl`.
+"""Metrics logging, one JSON line per call appended to
+`<run_dir>/metrics.jsonl`, and a `torch.profiler` trace scope.
 
-Counterpart of `multiply_tpu/utils/logging.py::MetricsLogger` (its trace
-scope, `profile_trace`, is not ported yet).
+Counterpart of `multiply_tpu/utils/logging.py`.
 """
 
 from __future__ import annotations
@@ -9,6 +9,9 @@ from __future__ import annotations
 import json
 import os
 import time
+from contextlib import contextmanager
+
+TRACE_FILE = "trace.json"
 
 
 class MetricsLogger:
@@ -33,3 +36,18 @@ class MetricsLogger:
 
     def close(self) -> None:
         self._f.close()
+
+
+@contextmanager
+def profile_trace(log_dir: str):
+    """`torch.profiler` scope that writes `<log_dir>/trace.json` (Chrome
+    trace format) when it closes. With a CUDA device it traces the card's
+    activity alone (the lighter event load), otherwise the host's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activity = ProfilerActivity.CUDA if torch.cuda.is_available() else ProfilerActivity.CPU
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=[activity]) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))

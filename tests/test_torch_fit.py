@@ -3,6 +3,7 @@ across the epoch-end stages, a delayed-pose epoch, checkpoints, and the
 training and test entries (`multiply_tpu_torch.cli`). No JAX here: what these
 tests hold is the control flow and the files the program writes."""
 
+import json
 import os
 
 import numpy as np
@@ -12,9 +13,12 @@ import torch
 import _torch_helpers  # noqa: F401  (sets the CPU thread count)
 from multiply_tpu_torch.cli import test as cli_test
 from multiply_tpu_torch.cli import train as cli_train
+from multiply_tpu_torch.config import load_config
 from multiply_tpu_torch.engine.evaluator import Evaluator
 from multiply_tpu_torch.engine.mesh_export import load_ply
+from multiply_tpu_torch.engine.sam_stage import PriorSegmenter, SamSegmenter
 from multiply_tpu_torch.engine.train import MODE_DELAYED_POSE, MODE_JOINT
+from multiply_tpu_torch.models import sam as sam_model
 from multiply_tpu_torch.utils.io import read_png
 
 CONF = os.path.join(os.path.dirname(__file__), "..", "confs", "synthetic_base.yaml")
@@ -155,10 +159,81 @@ def test_export_meshes_writes_canonical_and_deformed(tmp_path):
         assert not np.allclose(vc, vd)
 
 
-@pytest.mark.parametrize("flags", [("--devices", "2"), ("--profile", "3"), ("--set=sam_checkpoint=sam_vit_h.pth",)])
+@pytest.mark.parametrize("flags", [("--devices", "2")])
 def test_train_entry_refuses_what_is_not_ported(tmp_path, flags):
     with pytest.raises(SystemExit, match="ROADMAP"):
         cli_train.main(argv(tmp_path, *flags))
+
+
+def test_train_entry_profiles_steps_and_exits(tmp_path):
+    """`--profile 2`: two warm steps, two traced, the table written to
+    <run_dir>/profile/summary.json, and no training run after it."""
+    trainer = cli_train.main(argv(tmp_path, "--profile", "2"))
+    with open(os.path.join(tmp_path, "profile", "summary.json")) as f:
+        summary = json.load(f)
+    assert summary["steps"] == 2 and summary["wall_s"] > 0 and isinstance(summary["rows"], list)
+    assert os.path.exists(os.path.join(tmp_path, "profile", "trace.json"))
+    assert trainer.epoch == 0 and not os.path.exists(os.path.join(tmp_path, "checkpoints"))
+
+
+def test_train_entry_without_the_sam_checkpoint_uses_the_prior(tmp_path):
+    tr, _, _ = build(tmp_path, sets=(f"sam_checkpoint={tmp_path / 'missing.pth'}",))
+    assert isinstance(tr.segmenter, PriorSegmenter)
+
+
+def test_train_entry_with_a_sam_checkpoint_uses_sam(tmp_path, monkeypatch):
+    """An existing checkpoint (here `vit_test` in the official layout, through
+    a patched `build_sam_predictor`, since the entry asks for vit_h) gives a
+    `SamSegmenter` over the frames as uint8, rgb x 255 truncated; its stage
+    writes the refined logits at the frame size."""
+    path = tmp_path / "sam_vit_test.pth"
+    torch.save(sam_model.random_sam("vit_test", torch.Generator().manual_seed(0), device="cpu").state_dict(), path)
+    asked = []
+
+    def build_predictor(checkpoint, variant="vit_h", device="cuda"):
+        asked.append((checkpoint, variant, device))
+        return sam_model.SamPredictor(sam_model.load_sam(checkpoint, "vit_test", device))
+
+    monkeypatch.setattr(sam_model, "build_sam_predictor", build_predictor)
+    tr, _, _ = build(tmp_path / "run", sets=(f"sam_checkpoint={path}",))
+    assert isinstance(tr.segmenter, SamSegmenter) and asked == [(str(path), "vit_h", "cpu")]
+    assert len(tr.segmenter.images) == len(tr.seq)
+    rounded_somewhere = False
+    for i, image in enumerate(tr.segmenter.images):
+        item = tr.seq.get_eval_item(i)
+        rgb = item["rgb"].reshape(*item["img_size"], 3) * 255
+        frame = image()
+        assert frame.dtype == np.uint8 and frame.shape == (20, 24, 3)
+        np.testing.assert_array_equal(frame, np.floor(rgb).astype(np.uint8))
+        rounded_somewhere |= bool((np.round(rgb).astype(np.uint8) != frame).any())
+    assert rounded_somewhere, "the frames do not tell truncation from rounding"
+    tr.instance_mask_stage()
+    tr.sam_stage()
+    out = np.load(os.path.join(tmp_path, "run", "stage_sam_mask", "00000", "sam_opt_mask.npy"))
+    assert out.shape == (2, 2, 20, 24) and np.isfinite(out).all()
+
+
+@pytest.mark.parametrize("present", [True, False])
+def test_taichi01_config_reads_the_model_sam_checkpoint(tmp_path, monkeypatch, present):
+    """`confs/taichi01_base.yaml` names its checkpoint under `model` only. The
+    JAX entry reads the top-level key and so never builds SAM from it; the
+    port's entry reads the top level, then `model.`: with the named file
+    present it builds `SamSegmenter`, without it `PriorSegmenter`."""
+    conf = load_config(os.path.join(os.path.dirname(CONF), "taichi01_base.yaml"))
+    named = conf.model.sam_checkpoint
+    assert conf.get("sam_checkpoint", None) is None and named == "outputs/sam_vit_h_4b8939.pth"
+    monkeypatch.chdir(tmp_path)
+    if present:
+        os.makedirs("outputs")
+        open(named, "wb").close()
+    asked = []
+    monkeypatch.setattr(sam_model, "build_sam_predictor", lambda path, device="cuda": asked.append((path, device)))
+    seq = [None] * 3
+    seg = cli_train.build_segmenter(conf, seq, device="cpu")
+    if present:
+        assert isinstance(seg, SamSegmenter) and asked == [(named, "cpu")] and len(seg.images) == len(seq)
+    else:
+        assert isinstance(seg, PriorSegmenter) and not asked
 
 
 def test_smpl_init_loads_the_cached_network_into_every_person(tmp_path):
