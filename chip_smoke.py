@@ -31,7 +31,7 @@ Phases, each fatal on failure:
      `model/taichi01_fast_model.yaml`: bfloat16 sampler, box-clipped ray
      ranges): timed full-width steps and a profiled one, printed beside the
      parity preset's figures, with the GEMM kernels' device time by name;
-  7. path P, pose-only steps with a `PoseLossBatch` of the synthetic scene
+  7. path O, pose-only steps with a `PoseLossBatch` of the synthetic scene
      (body meshes padded to 8192 faces, 2048 pixels, 5120 interpenetration
      samples, the two bodies overlapping): asserts the three pose losses are
      there and not all zero, every `body.*` leaf moved and no `net.*` leaf;
@@ -65,9 +65,25 @@ Phases, each fatal on failure:
      epoch 1 trains on; prints the encoder's parameters, FLOP count and bound,
      the encode and predict times, the stage's seconds and the peak memory of
      the encode and of the stage. The checkpoint file is deleted after;
- 11. `cli/train.py --profile 3` on path T's configuration and its table of
+ 11. path P, the preprocessing chain (`run_path_p`): SMPL pickles at 6890
+     vertices written by `body/synthetic_pickle.py`; a raw TRACE npz of 2
+     persons x 2 frames (shuffled detections, 1-based track ids, keypoints
+     the bodies' projected joints, poses and translations corrupted) and
+     540x720 PNG frames, made with the port; `python -m
+     multiply_tpu_torch.preprocessing` on the card at 150 refinement
+     iterations (keypoint error must fall, masks non-empty, every file
+     written); the training entry on `confs/taichi01_base.yaml` at full width
+     on that directory and the pickles for 2 epochs (SMPL init cut to 50
+     steps), `nn1` at V = 6890, each new kernel shape held to its plain
+     version; the test entry on one frame; `export_visualization` of both
+     frames (shading covers the projected bodies, a GIF89a with one image
+     block a frame); both kernels timed at the trainer's shapes. Prints the
+     seconds of PnP, refinement (per frame), finalize, set-up with the
+     canonical `sdf_grid` bakes on their own, epochs and stages, the test
+     entry, launches and peak memory;
+ 12. `cli/train.py --profile 3` on path T's configuration and its table of
      device time by category.
-Each of the paths 5-7, 9 and 10 zeroes the kernels' launch counters just
+Each of the paths 5-7 and 9-11 zeroes the kernels' launch counters just
 before it and reads them just after. Prints the `{"kernels": [...]}` line,
 then the nvidia-smi line, then `{"ok": true, "device": {...}}` as the last
 line.
@@ -113,6 +129,14 @@ SAM_EPOCHS = 2  # epoch 0 (instance masks + SAM stage), then epoch 1 trains on t
 # 20x below the other
 SAM_F64_TOL = 2.5e-4
 PROFILE_STEPS = 3
+# path P: the preprocessing chain on the 6890-vertex pickle, then the entries on its directory
+PREP_CONF = os.path.join("confs", "taichi01_base.yaml")
+PREP_VERTS = 6890
+PREP_FRAMES, PREP_PERSONS = 2, 2
+PREP_HW = (540, 720)  # tracker frames; the training images are half that (--scale_factor 2)
+PREP_FOCAL, PREP_CENTER = 720.0, (360.5, 270.5)
+PREP_EPOCHS = 2
+PREP_SMPL_INIT_STEPS = 50  # of the configured 2000
 
 
 def log(*args):
@@ -135,6 +159,23 @@ def cuda_time_ms(fn, reps=30, warmup=5):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def queued_ms(fn, launches=50):
+    """Device time of one call of `fn`: CUDA events around `launches` calls
+    queued back to back, divided by their count (the host's launch time hides
+    behind the card's work once a call runs longer than it takes to enqueue)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(launches):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / launches
 
 
 def check_nn1(q, r, name):
@@ -420,14 +461,16 @@ def read_counts():
     return {"nn1": knn_cuda.nn1.launches, "grid_trilinear": grid_cuda.grid_trilinear.launches}
 
 
-def hold_kernels_on_path():
-    """While path T runs, hold each kernel to its plain version on the inputs
-    that the path itself hands it: the first call of each new shape (`nn1`:
-    query shape and V; `grid_trilinear`: point shape, grid resolution, group)
-    has its output compared, on the same tensors, with the plain version's.
-    No kernel is launched for the check, so the launch counts stay the path's
-    own. A failure is recorded, not raised: the trainer's stages catch and
-    print what they raise. Returns ({shape: max abs error}, failures, undo)."""
+def hold_kernels_on_path(path="T", inputs=None):
+    """While a path (T or P) runs, hold each kernel to its plain version on the
+    inputs that the path itself hands it: the first call of each new shape
+    (`nn1`: query shape and V; `grid_trilinear`: point shape, grid resolution,
+    group) has its output compared, on the same tensors, with the plain
+    version's. No kernel is launched for the check, so the launch counts stay
+    the path's own. A failure is recorded, not raised: the trainer's stages
+    catch and print what they raise. With a dict `inputs`, a copy of each
+    first call's arguments is kept there by shape, for timing after the run.
+    Returns ({shape: max abs error}, failures, undo)."""
     import threading
 
     import torch
@@ -448,10 +491,17 @@ def hold_kernels_on_path():
                 checked[key] = math.inf
                 failures.append(f"{key}: {e!r}")
 
+    def keep(key, *args):
+        if inputs is not None and key not in inputs:
+            with lock:
+                inputs[key] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+
     def nn1_held(query, refs):
         d2, idx = nn1(query, refs)
-        name = f"path T nn1 query {tuple(query.shape)} V={refs.shape[-2]}"
-        hold(("nn1", tuple(query.shape), refs.shape[-2]), lambda: compare_nn1(query, refs, d2, idx, name)[0])
+        key = ("nn1", tuple(query.shape), refs.shape[-2])
+        name = f"path {path} nn1 query {tuple(query.shape)} V={refs.shape[-2]}"
+        hold(key, lambda: compare_nn1(query, refs, d2, idx, name)[0])
+        keep(key, query, refs)
         return d2, idx
 
     def grid_held(grid, points, origin, spacing, group=1):
@@ -462,7 +512,9 @@ def hold_kernels_on_path():
             assert err <= 1e-5, f"max abs error {err} > 1e-5"
             return err
 
-        hold(("grid_trilinear", tuple(points.shape), grid.shape[-1], group), compare)
+        key = ("grid_trilinear", tuple(points.shape), grid.shape[-1], group)
+        hold(key, compare)
+        keep(key, grid, points, origin, spacing, group)
         return out
 
     skinning.nn1, renderer_module.grid_trilinear = nn1_held, grid_held
@@ -951,6 +1003,388 @@ def run_profile():
     return summary
 
 
+def write_tracker_output(root, smpl_dir):
+    """Scaffolding for path P: what TRACE and a keypoint detector would hand
+    the preprocessing, made with the port and numpy from the 6890-vertex body
+    the pickles hold. PREP_PERSONS bodies with random shapes and near-canonical
+    poses stand 4 m away; the keypoints are their projected COCO-17 joints; the
+    tracker's poses and translations are those, corrupted; the raw TRACE npz
+    holds one shuffled detection per person and frame with 1-based track ids
+    and frame ids from 5; the PNG frames show each body in a flat tint over a
+    noisy background. Returns (npz path, frames dir, true keypoints (F, P, 17, 3))."""
+    import numpy as np
+    import torch
+
+    from multiply_tpu_torch.body.server import SMPLServer, canonical_pose_params, smpl_server_forward, stack_servers
+    from multiply_tpu_torch.body.smpl import load_smpl_model
+    from multiply_tpu_torch.engine.instance_masks import project_depth
+    from multiply_tpu_torch.native import rasterize_depth
+    from multiply_tpu_torch.preprocessing.refine import SMPL_TO_COCO17, project
+    from multiply_tpu_torch.preprocessing.trace import TRACE_TO_COCO17
+    from multiply_tpu_torch.utils.io import write_png
+
+    rng = np.random.default_rng(SEED)
+    F, P, (H, W) = PREP_FRAMES, PREP_PERSONS, PREP_HW
+    K = np.array([[PREP_FOCAL, 0, PREP_CENTER[0]], [0, PREP_FOCAL, PREP_CENTER[1]], [0, 0, 1]], np.float32)
+    model = load_smpl_model(smpl_dir, device="cpu")
+    betas = (rng.standard_normal((P, 10)) * 0.2).astype(np.float32)
+    server = stack_servers([SMPLServer.create(model, betas=b) for b in betas])
+    poses = (canonical_pose_params(device="cpu").numpy() + rng.normal(0, 0.05, (F, P, 72))).astype(np.float32)
+    trans = np.zeros((F, P, 3), np.float32)
+    trans[..., 0] = np.arange(P) - (P - 1) / 2
+    trans[..., 2] = 4.0
+    kps = np.zeros((F, P, 17, 3), np.float32)
+    frames_dir = os.path.join(root, "frames")
+    os.makedirs(frames_dir, exist_ok=True)
+    tints = np.array([[230, 110, 90], [90, 130, 230], [100, 210, 100], [210, 200, 80]], np.float32)
+    for f in range(F):
+        with torch.no_grad():
+            out = smpl_server_forward(server, torch.ones(P), torch.as_tensor(trans[f]), torch.as_tensor(poses[f]),
+                                      torch.as_tensor(betas))
+            kps[f, :, :, :2] = project(out["smpl_all_jnts"][:, SMPL_TO_COCO17], torch.as_tensor(K), torch.eye(3),
+                                       torch.zeros(3)).numpy()
+        kps[f, :, :, 2] = 1.0
+        img = (100 + 40 * rng.random((H, W, 3))).astype(np.float32)
+        depth = np.full((H, W), np.inf, np.float32)
+        P_mat = np.eye(4, dtype=np.float32)
+        P_mat[:3, :3] = K
+        for p in range(P):
+            d = rasterize_depth(project_depth(P_mat, out["smpl_verts"][p].numpy()).astype(np.float32),
+                                model.faces.numpy(), W, H)
+            near = d < depth
+            img[near], depth[near] = tints[p % len(tints)], d[near]
+        write_png(os.path.join(frames_dir, f"{f:04d}.png"), img.astype(np.uint8))
+
+    poses_init = poses + rng.normal(0, 0.05, poses.shape).astype(np.float32)
+    trans_init = trans + rng.normal(0, 0.1, trans.shape).astype(np.float32)
+    det = {k: [] for k in ("reorganize_idx", "track_ids", "smpl_thetas", "smpl_betas", "cam_trans", "j3d", "pj2d_org")}
+    for f in range(F):
+        for p in rng.permutation(P):
+            pj = np.zeros((44, 2), np.float32)
+            pj[TRACE_TO_COCO17] = kps[f, p, :, :2]
+            for k, v in (("reorganize_idx", 5 + f), ("track_ids", int(p) + 1), ("smpl_thetas", poses_init[f, p]),
+                         ("smpl_betas", betas[p]), ("cam_trans", trans_init[f, p]),
+                         ("j3d", np.zeros((44, 3), np.float32)), ("pj2d_org", pj)):
+                det[k].append(v)
+    npz = os.path.join(root, "trace.npz")
+    np.savez(npz, outputs={k: np.asarray(v) if k in ("reorganize_idx", "track_ids") else np.stack(v)
+                           for k, v in det.items()})
+    return npz, frames_dir, kps
+
+
+def gif_image_blocks(path):
+    """The image descriptors of a GIF89a file, counted by walking its blocks."""
+    with open(path, "rb") as f:
+        data = f.read()
+    assert data[:6] == b"GIF89a", data[:6]
+    flags = data[10]
+    pos = 13 + (3 * 2 ** ((flags & 7) + 1) if flags & 0x80 else 0)
+    images = 0
+
+    def skip_sub_blocks(pos):
+        while data[pos]:
+            pos += data[pos] + 1
+        return pos + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:  # extension: label, then sub-blocks
+            pos = skip_sub_blocks(pos + 2)
+        elif data[pos] == 0x2C:  # image: descriptor, [local table], LZW size, sub-blocks
+            images += 1
+            local = data[pos + 9]
+            pos += 10 + (3 * 2 ** ((local & 7) + 1) if local & 0x80 else 0)
+            pos = skip_sub_blocks(pos + 1)
+        else:
+            raise AssertionError(f"GIF: unknown block 0x{data[pos]:02x} at {pos}")
+    return images
+
+
+def run_path_p():
+    """Path P: the preprocessing chain on the card, then training and testing
+    on the directory it wrote, with the 6890-vertex body. (1) SMPL pickles at
+    6890 vertices (`write_synthetic_smpl_dir`); (2) tracker output and 540x720
+    frames (`write_tracker_output`); (3) the preprocessing entry at its default
+    150 refinement iterations and scale factor 2: the refined keypoint error
+    below the initial one, every mask non-empty, every file written; (4) the
+    training entry on `confs/taichi01_base.yaml` at full width on that
+    directory and the pickles for PREP_EPOCHS epochs (epoch 0 with its
+    instance masks, SAM stage, validation and checkpoint), every step finite
+    in the mode `_select_mode` gives, `nn1` run at V = 6890, each new shape of
+    either kernel held to its plain version; (5) the test entry on one frame
+    and `export_visualization` of both frames' posed SMPL meshes; (6) both
+    kernels timed at the shapes the trainer handed them. Returns a dict of
+    what it measured."""
+    import numpy as np
+    import torch
+
+    import multiply_tpu_torch.engine.trainer as trainer_module
+    import multiply_tpu_torch.models.renderer as renderer_module
+    from multiply_tpu_torch.body.server import smpl_server_forward
+    from multiply_tpu_torch.body.synthetic_pickle import write_synthetic_smpl_dir
+    from multiply_tpu_torch.cli import test as cli_test
+    from multiply_tpu_torch.cli import train as cli_train
+    from multiply_tpu_torch.engine.instance_masks import project_depth
+    from multiply_tpu_torch.engine.visualize import export_visualization
+    from multiply_tpu_torch.native import rasterize_depth
+    from multiply_tpu_torch.ops import grid_cuda, knn_cuda
+    from multiply_tpu_torch.preprocessing import pipeline, refine
+    from multiply_tpu_torch.preprocessing.__main__ import main as preprocess_main
+    from multiply_tpu_torch.utils.io import read_png
+
+    dev = "cuda"
+    root = os.path.join(ROOT, "outputs", "chip_smoke_path_p")
+    shutil.rmtree(root, ignore_errors=True)
+    smpl_dir, data_dir, run_dir = (os.path.join(root, d) for d in ("smpl_model", "data", "run"))
+    out = {}
+    zero_counts()
+    t_path = time.perf_counter()
+
+    # ---- (1) body, (2) tracker output ----
+    t0 = time.perf_counter()
+    write_synthetic_smpl_dir(smpl_dir, num_verts=PREP_VERTS, seed=SEED)
+    npz, frames_dir, kps_true = write_tracker_output(root, smpl_dir)
+    out["scaffold_s"] = time.perf_counter() - t0
+
+    # ---- (3) preprocessing ----
+    frame_s, refined = [], {}
+    refine_frame, refine_sequence = refine.refine_frame, pipeline.refine_sequence
+
+    def timed_frame(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = refine_frame(*args, **kw)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+        return result
+
+    def kept_sequence(server, K, R, t, poses, transl, betas, keypoints_2d, cfg):
+        result = refine_sequence(server, K, R, t, poses, transl, betas, keypoints_2d, cfg)
+        refined.update(server=server, K=K, before=(poses, transl, betas), after=result, kp=keypoints_2d, cfg=cfg)
+        return result
+
+    refine.refine_frame, pipeline.refine_sequence = timed_frame, kept_sequence
+    try:
+        seconds = preprocess_main(["--trace", npz, "--frames", frames_dir, "--out", data_dir, "--smpl_model",
+                                   os.path.join(smpl_dir, "SMPL_NEUTRAL.pkl"), "--focal", str(PREP_FOCAL),
+                                   "--center", *map(str, PREP_CENTER), "--device", dev])
+    finally:
+        refine.refine_frame, pipeline.refine_sequence = refine_frame, refine_sequence
+    cfg = refined["cfg"]
+    assert cfg.iters == 150 and cfg.is_vitpose and len(frame_s) == PREP_FRAMES, (cfg, frame_s)
+    assert refined["server"].verts_c.shape[-2] == PREP_VERTS, tuple(refined["server"].verts_c.shape)
+
+    def keypoint_error(poses, transl, betas):
+        errs = []
+        with torch.no_grad():
+            for f in range(PREP_FRAMES):
+                o = smpl_server_forward(refined["server"], torch.ones(PREP_PERSONS, device=dev), transl[f], poses[f],
+                                        betas)
+                pix = refine.project(o["smpl_all_jnts"][:, refine.SMPL_TO_COCO17], refined["K"],
+                                     torch.eye(3, device=dev), torch.zeros(3, device=dev))
+                errs.append((pix - refined["kp"][f, ..., :2]).norm(dim=-1).mean().item())
+        return sum(errs) / len(errs)
+
+    err0, err1 = keypoint_error(*refined["before"]), keypoint_error(*refined["after"])
+    assert err1 < err0, f"refinement raised the keypoint error {err0} -> {err1}"
+    n_frames = PREP_FRAMES
+    missing = [f for f in (*pipeline.FILES, *(f"image/{i:04d}.png" for i in range(n_frames)),
+                           *(f"mask/{p}/{i:04d}.png" for p in range(PREP_PERSONS) for i in range(n_frames)))
+               if not os.path.exists(os.path.join(data_dir, f))]
+    assert not missing, f"preprocessing did not write {missing}"
+    masks = [read_png(os.path.join(data_dir, "mask", str(p), f"{i:04d}.png")) for p in range(PREP_PERSONS)
+             for i in range(n_frames)]
+    assert all(m.any() for m in masks), "an empty mask"
+    H, W = PREP_HW[0] // 2, PREP_HW[1] // 2
+    assert read_png(os.path.join(data_dir, "image", "0000.png")).shape == (H, W, 3) and masks[0].shape == (H, W)
+    out.update(pnp_s=seconds["pnp"], refine_s=seconds["refine"], refine_frame_s=frame_s, finalize_s=seconds["finalize"],
+               kp_err=(err0, err1), mask_share=[float((m > 0).mean()) for m in masks])
+    log(f"path P preprocessing ({PREP_FRAMES} frames of {PREP_HW[0]}x{PREP_HW[1]}, {PREP_PERSONS} persons, "
+        f"{PREP_VERTS}-vertex pickle; scaffold {out['scaffold_s']:.1f} s): PnP {seconds['pnp']:.3f} s, refinement "
+        f"{seconds['refine']:.3f} s ({cfg.iters} iterations a frame; by frame {[round(x, 3) for x in frame_s]} s), "
+        f"finalize {seconds['finalize']:.3f} s; keypoint error {err0:.3f} -> {err1:.3f} px; mask coverage "
+        f"{[round(x, 3) for x in out['mask_share']]}")
+
+    # ---- (4) training on that directory ----
+    sets = ("dataset.train.end_frame=2", "model.num_training_frames=2", f"smpl_model_path={smpl_dir}",
+            f"model.smpl_init_steps={PREP_SMPL_INIT_STEPS}", f"model.smpl_init_cache_dir={run_dir}")
+    argv = ["--conf", os.path.join(ROOT, PREP_CONF), "--data_root", data_dir, "--run_dir", run_dir, "--device", dev,
+            *(f"--set={s}" for s in sets)]
+    bakes, smpl_init = [], []
+    sdf_grid, apply_smpl_init = renderer_module.sdf_grid, trainer_module.Trainer._apply_smpl_init
+
+    def timed_bake(verts, faces, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = sdf_grid(verts, faces, *args, **kw)
+        torch.cuda.synchronize()
+        bakes.append((time.perf_counter() - t0, tuple(faces.shape), result["grid"].shape[-1]))
+        return result
+
+    def timed_init(self, model_conf):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        apply_smpl_init(self, model_conf)
+        torch.cuda.synchronize()
+        smpl_init.append(time.perf_counter() - t0)
+
+    renderer_module.sdf_grid, trainer_module.Trainer._apply_smpl_init = timed_bake, timed_init
+    try:
+        t0 = time.perf_counter()
+        trainer, conf, ckpt_dir = cli_train.build_trainer(cli_train.parse_args(argv))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+    finally:
+        renderer_module.sdf_grid, trainer_module.Trainer._apply_smpl_init = sdf_grid, apply_smpl_init
+    m, d = conf.model, conf.dataset.train
+    widths = (f"SDF {len(m.implicit_network.dims)}x{m.implicit_network.dims[0]}, render "
+              f"{len(m.rendering_network.dims)}x{m.rendering_network.dims[0]}, sampler "
+              f"{m.ray_sampler.max_total_iters}x{m.ray_sampler.N_samples_eval} evals, {d.num_sample} rays a step, "
+              f"{len(trainer.seq)} frames of {H}x{W}")
+    assert list(m.implicit_network.dims) == [256] * 8 and list(m.rendering_network.dims) == [256] * 4, widths
+    assert (m.ray_sampler.max_total_iters, m.ray_sampler.N_samples_eval, d.num_sample) == (5, 128, 512), widths
+    assert len(trainer.seq) == n_frames and trainer.seq.get_eval_item(0)["img_size"] == (H, W), widths
+    assert all(s.verts_c.shape == (PREP_VERTS, 3) for s in trainer.servers), "the trainer's body is not the pickle's"
+    assert len(bakes) == PREP_PERSONS and all(b[1] == (2 * PREP_VERTS - 4, 3) for b in bakes), bakes
+    assert len(smpl_init) == 1, smpl_init
+    out.update(setup_s=setup_s, bake_s=[b[0] for b in bakes], bake_faces=bakes[0][1][0], bake_res=bakes[0][2],
+               smpl_init_s=smpl_init[0])
+    log(f"path P: training entry set-up {setup_s:.1f} s ({widths}), of it the canonical sdf_grid bakes "
+        f"{[round(b[0], 3) for b in bakes]} s (res {bakes[0][2]}, {bakes[0][1][0]} faces each) and SMPL init "
+        f"{smpl_init[0]:.1f} s ({PREP_SMPL_INIT_STEPS} steps)")
+
+    kernel_inputs = {}
+    held_shapes, failures, unhold = hold_kernels_on_path("P", kernel_inputs)
+    steps, _, _ = instrument(trainer)
+    spent, undo = profile_stages(trainer)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.fit(PREP_EPOCHS, ckpt_dir=ckpt_dir)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches_fit = read_counts()
+    undo()
+    peak = max(pk for _, pk, _ in spent.values())
+    assert len(steps) == PREP_EPOCHS * n_frames, f"path P took {len(steps)} steps"
+    for ep, mode, expected, loss, skipped in steps:
+        assert mode == expected, f"path P epoch {ep}: step mode {mode}, _select_mode gives {expected}"
+        assert math.isfinite(loss) and skipped == 0.0, f"path P epoch {ep}: loss {loss}, update skipped {skipped}"
+    expected_files = ["stage_instance_mask/00000/all_person_smpl_mask.npy", "stage_sam_mask/00000/sam_opt_mask.npy",
+                      "val/epoch_00000.png", "checkpoints/epoch_00000", "checkpoints/last"]
+    missing = [f for f in expected_files if not os.path.exists(os.path.join(run_dir, f))]
+    assert not missing, f"path P training did not write {missing}"
+    metrics = read_metrics(run_dir)
+    epoch_s = {r["epoch"]: r["epoch_seconds"] for r in metrics if "epoch_seconds" in r}
+    stage_s = {f"{k[:-8]}@{r['epoch']}": r[k] for r in metrics for k in r if k.endswith("_seconds") and k != "epoch_seconds"}
+    nn1_v = sorted({key[2] for key in held_shapes if key[0] == "nn1"})
+    assert PREP_VERTS in nn1_v and launches_fit["nn1"] > 0 and launches_fit["grid_trilinear"] > 0, \
+        (nn1_v, launches_fit)
+    out.update(fit_s=fit_s, epoch_s=epoch_s, stage_s=stage_s, launches_fit=launches_fit, peak_gib=peak,
+               steps=len(steps), val_psnr=[r["val_psnr"] for r in metrics if "val_psnr" in r])
+    log(f"path P: {PREP_EPOCHS} epochs in {fit_s:.1f} s, epoch seconds {epoch_s}, stages (seconds @ epoch) "
+        f"{ {k: round(v, 3) for k, v in stage_s.items()} }, {len(steps)} steps, kernel launches {launches_fit}, peak "
+        f"memory {peak:.3f} GiB, validation PSNR {out['val_psnr']}")
+
+    # ---- (5) the test entry, then the visualisation of both frames ----
+    t0 = time.perf_counter()
+    test_dir = cli_test.main([*argv, "--frames", "1"])
+    out["test_s"] = time.perf_counter() - t0
+    assert read_png(os.path.join(test_dir, "test_rendering", "0000.png")).shape == (H, 2 * W, 3)
+    unhold()
+    out["launches"] = read_counts()
+    assert not failures, f"path P: a kernel disagrees with its plain version: {failures}"
+
+    t0 = time.perf_counter()
+    seq, body = trainer.seq, trainer.ts.body
+    images, meshes, projections = [], [], []
+    faces = trainer.servers[0].model.faces.cpu().numpy()
+    with torch.no_grad():
+        for i in range(n_frames):
+            item = seq.get_eval_item(i)
+            posed = smpl_server_forward(trainer.person_state.server, torch.as_tensor(item["smpl_scale"], device=dev),
+                                        body.transl[:, i], body.thetas(i), body.betas[:, 0])["smpl_verts"]
+            images.append(item["rgb"].reshape(H, W, 3))
+            meshes.append([(v, faces) for v in posed.cpu().numpy()])
+            projections.append(np.asarray(seq.P[i]))
+    vis_dir = os.path.join(root, "visualization")
+    export_visualization(vis_dir, images, meshes, projections)
+    out["vis_s"] = time.perf_counter() - t0
+    cover = []
+    for i in range(n_frames):
+        shaded = np.abs(read_png(os.path.join(vis_dir, f"{i:04d}.png")).astype(np.int32)
+                        - (np.clip(images[i], 0, 1) * 255).astype(np.int32)).sum(-1) > 0
+        body_px = np.zeros((H, W), bool)
+        for v, fc in meshes[i]:
+            body_px |= np.isfinite(rasterize_depth(project_depth(projections[i], v).astype(np.float32), fc, W, H))
+        cover.append(float((shaded & body_px).sum() / body_px.sum()))
+    blocks = gif_image_blocks(os.path.join(vis_dir, "sequence.gif"))
+    assert min(cover) > 0.95 and blocks == n_frames, (cover, blocks)
+    out.update(vis_cover=cover)
+    log(f"path P: test entry, 1 frame, {out['test_s']:.1f} s; visualisation of {n_frames} frames {out['vis_s']:.2f} s "
+        f"(shaded share of the projected bodies {[round(c, 4) for c in cover]}, GIF89a with {blocks} image blocks); "
+        f"launches over path P (training and test entries) {out['launches']}")
+
+    # ---- (6) both kernels at the shapes the trainer handed them ----
+    # nn1: a sampler round of a training step (rays x N_samples_eval points a person)
+    n_step = d.num_sample * m.ray_sampler.N_samples_eval
+    key_a = next(k for k in kernel_inputs if k[0] == "nn1" and k[2] == PREP_VERTS and k[1][-2] == n_step)
+    q, r = kernel_inputs[key_a]
+    key_b = next(k for k in kernel_inputs if k[0] == "grid_trilinear")
+    grid_args, group = kernel_inputs[key_b][:4], kernel_inputs[key_b][4]
+    with torch.no_grad():
+        def run_a():
+            return knn_cuda.nn1(q, r)
+
+        def run_b():
+            return grid_cuda.grid_trilinear(*grid_args, group=group)
+
+        n_q, V = q.shape[-2], r.shape[-2]
+        a = {"ms": cuda_time_ms(run_a), "plain_ms": cuda_time_ms(lambda: knn_cuda.nn1_plain(q, r), reps=10),
+             "library_ms": cuda_time_ms(lambda: torch.cdist(q, r, compute_mode="donot_use_mm_for_euclid_dist").min(-1),
+                                        reps=10)}
+        a["device_ms"], _ = device_time_ms(run_a, "nn1_kernel")
+        a["queued_ms"] = queued_ms(run_a)
+        a["host_us"], _ = host_time_us(run_a)
+        batch = q.shape[0] if q.dim() == 3 else 1
+        a_ops = NN1_OPS_PER_PAIR * batch * n_q * V
+        a_bytes = batch * (n_q * 12 + V * 12 + n_q * 12)
+        a["bound_ms"] = max(a_ops / PEAK_FP32_FLOPS, a_bytes / PEAK_BYTES) * 1e3
+        a["bound_by"] = "operations" if a_ops / PEAK_FP32_FLOPS > a_bytes / PEAK_BYTES else "bytes"
+        a["shape"] = f"query {tuple(q.shape)} V={V}"
+        grid, pts = grid_args[0], grid_args[1]
+        res = grid.shape[-1]
+        b = {"ms": cuda_time_ms(run_b),
+             "plain_ms": cuda_time_ms(lambda: grid_cuda.grid_trilinear_plain(*grid_args, group=group), reps=10)}
+        b["device_ms"], _ = device_time_ms(run_b, "grid_trilinear_kernel")
+        b["queued_ms"] = queued_ms(run_b)
+        b["host_us"], _ = host_time_us(run_b)
+        n_pts, n_out = pts.shape[:-1].numel(), pts.shape[:-1].numel() // group
+        b_bytes = n_pts * 12 + grid.numel() * 4 + grid.shape[0] * 24 + n_out * 4
+        b_ops = (GRID_OPS_PER_POINT + (1 if group > 1 else 0)) * n_pts
+        b["bound_ms"] = max(b_ops / PEAK_FP32_FLOPS, b_bytes / PEAK_BYTES) * 1e3
+        b["bound_by"] = "operations" if b_ops / PEAK_FP32_FLOPS > b_bytes / PEAK_BYTES else "bytes"
+        Pb = grid.shape[0]
+        unit = (pts - grid_args[2][:, None, :]) / grid_args[3][:, None, :] / (res - 1) * 2 - 1
+        b["library_ms"] = cuda_time_ms(lambda: torch.nn.functional.grid_sample(
+            grid[:, None], unit.flip(-1)[:, None, None], mode="bilinear", padding_mode="border", align_corners=True,
+        ).reshape(Pb, -1, group).min(-1))
+        b["shape"] = f"points {tuple(pts.shape)} res {res} group={group}"
+    held_err = {k: max((e for key, e in held_shapes.items() if key[0] == k), default=None)
+                for k in ("nn1", "grid_trilinear")}
+    out.update(nn1=a, grid=b, held=held_shapes, held_err=held_err, path_s=time.perf_counter() - t_path)
+    log(f"path P kernels at the trainer's shapes: nn1 {a['shape']}: call {a['ms']:.4f} ms, queued "
+        f"{a['queued_ms']:.4f} ms, device (profiler) {a['device_ms']} ms, host {a['host_us']:.2f} us, bound "
+        f"{a['bound_ms']:.4f} ms ({a['bound_by']}), plain {a['plain_ms']:.4f} ms, cdist+min {a['library_ms']:.4f} ms; "
+        f"grid_trilinear {b['shape']}: call {b['ms']:.4f} ms, queued {b['queued_ms']:.4f} ms, device (profiler) "
+        f"{b['device_ms']} ms, host {b['host_us']:.2f} us, bound {b['bound_ms']:.6f} ms ({b['bound_by']}), plain "
+        f"{b['plain_ms']:.4f} ms, grid_sample+min {b['library_ms']:.4f} ms")
+    log(f"path P: each kernel held to its plain version on the first call of each shape, max abs error by shape: "
+        f"{ {' '.join(map(str, k)): float(f'{e:.3g}') for k, e in held_shapes.items()} }; whole path "
+        f"{out['path_s']:.1f} s")
+    del trainer, seq, body
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1204,7 +1638,7 @@ def main() -> int:
     assert other_f > 0, "no f32 GEMM kernel remained in the fast preset's step"
     del renderer_f, stepper_f, ts_f
 
-    # ---------------- 7. path P: pose-only steps with the mesh losses ----------------
+    # ---------------- 7. path O: pose-only steps with the mesh losses ----------------
     # person 1 steps in front of and into person 0, so the instance masks (made
     # with the bodies apart) disagree with the geometry and the bodies overlap
     transl_p = scene.transl.copy()
@@ -1260,7 +1694,11 @@ def main() -> int:
     # ---------------- 10. path S: the SAM refinement path ----------------
     path_s = run_path_s()
 
-    # ---------------- 11. --profile on path T's configuration ----------------
+    # ---------------- 11. path P: preprocessing, then the entries on its directory ----------------
+    torch.cuda.empty_cache()
+    path_p = run_path_p()
+
+    # ---------------- 12. --profile on path T's configuration ----------------
     t0 = time.perf_counter()
     prof = run_profile()
     log(f"--profile {prof['steps']} ({time.perf_counter() - t0:.1f} s with its set-up): {prof['wall_s']:.3f} s "
@@ -1270,10 +1708,10 @@ def main() -> int:
 
     launches_by_path = {"parity": launches, "fast": launches_f, "pose": launches_p,
                         "trainer": path_t["launches_a"], "trainer_pose": path_t["launches_b"],
-                        "sam": path_s["launches"]}
+                        "sam": path_s["launches"], "preprocessed": path_p["launches"]}
     steps_by_path = {"parity": STEPS, "fast": STEPS_FAST, "pose": STEPS_POSE,
                      "trainer": path_t["steps_a"], "trainer_pose": path_t["steps_b"],
-                     "sam": path_s["steps"]}
+                     "sam": path_s["steps"], "preprocessed": path_p["steps"]}
     # the trainer's counts hold its stages' launches too: per step only for the step paths
     per_step = {path: {k: n / steps_by_path[path] for k, n in launches_by_path[path].items()}
                 for path in ("parity", "fast", "pose")}
@@ -1287,10 +1725,13 @@ def main() -> int:
             "launches": launches["nn1"], "launches_per_step": per_step["parity"]["nn1"],
             "launches_by_path": {k: v["nn1"] for k, v in launches_by_path.items()}, "steps_by_path": steps_by_path,
             "launches_per_step_by_path": {k: v["nn1"] for k, v in per_step.items()},
-            "max_abs_err": max(err_a, err_a3, err_a4, path_t["held_err"]["nn1"]),
-            "max_err": max(err_a, err_a3, err_a4, path_t["held_err"]["nn1"]),
+            "max_abs_err": max(err_a, err_a3, err_a4, path_t["held_err"]["nn1"], path_p["held_err"]["nn1"]),
+            "max_err": max(err_a, err_a3, err_a4, path_t["held_err"]["nn1"], path_p["held_err"]["nn1"]),
             "max_abs_err_path_t": path_t["held_err"]["nn1"],
             "shapes_held_path_t": sum(1 for k in path_t["held"] if k[0] == "nn1"),
+            "max_abs_err_path_p": path_p["held_err"]["nn1"],
+            "shapes_held_path_p": sum(1 for k in path_p["held"] if k[0] == "nn1"),
+            "path_p": {**path_p["nn1"], "launches": path_p["launches"]["nn1"]},
             "max_abs_err_pose_meshes": err_a4, "ms_pose_meshes": t_a4, "ms": t_a, "kernel_ms": t_a,
             "plain_ms": t_a_plain, "bound_ms": bound_a,
             "bound_by": "operations" if a_ops / PEAK_FP32_FLOPS > a_bytes / PEAK_BYTES else "bytes",
@@ -1307,10 +1748,14 @@ def main() -> int:
             "launches_by_path": {k: v["grid_trilinear"] for k, v in launches_by_path.items()},
             "steps_by_path": steps_by_path,
             "launches_per_step_by_path": {k: v["grid_trilinear"] for k, v in per_step.items()},
-            "max_abs_err": max(err_b, err_b1, path_t["held_err"]["grid_trilinear"]),
-            "max_err": max(err_b, err_b1, path_t["held_err"]["grid_trilinear"]),
+            "max_abs_err": max(err_b, err_b1, path_t["held_err"]["grid_trilinear"],
+                               path_p["held_err"]["grid_trilinear"]),
+            "max_err": max(err_b, err_b1, path_t["held_err"]["grid_trilinear"], path_p["held_err"]["grid_trilinear"]),
             "max_abs_err_path_t": path_t["held_err"]["grid_trilinear"],
             "shapes_held_path_t": sum(1 for k in path_t["held"] if k[0] == "grid_trilinear"),
+            "max_abs_err_path_p": path_p["held_err"]["grid_trilinear"],
+            "shapes_held_path_p": sum(1 for k in path_p["held"] if k[0] == "grid_trilinear"),
+            "path_p": {**path_p["grid"], "launches": path_p["launches"]["grid_trilinear"]},
             "ms": t_b, "kernel_ms": t_b,
             "plain_ms": t_b_plain, "bound_ms": bound_b,
             "bound_by": "operations" if b_ops / PEAK_FP32_FLOPS > b_bytes / PEAK_BYTES else "bytes",

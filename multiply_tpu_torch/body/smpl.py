@@ -118,7 +118,9 @@ def lbs(
     W = model.lbs_weights
     T = torch.einsum("...vj,...jab->...vab", W, A)
     verts = torch.einsum("...vab,...vb->...va", T[..., :3, :3], v_posed) + T[..., :3, 3]
-    idx = model.extra_joint_idxs
+    # ids past the last vertex (the face keypoints' fixed ids on a body with
+    # fewer than 6890 vertices) read the last vertex, as JAX's gather clamps
+    idx = model.extra_joint_idxs.clamp(max=verts.shape[-2] - 1)
     if idx.dim() == 1:
         extra = verts[..., idx, :]
     else:

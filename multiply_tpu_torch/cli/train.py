@@ -14,7 +14,9 @@ writes `<run_dir>/profile/summary.json` and exits. Run artifacts
 (checkpoints, stage_* files, validation renders, metrics.jsonl) go to
 outputs/<exp>/<run>/ unless --run_dir says otherwise. Runs on the card;
 `--device cpu` is for tests at tiny widths (`--set` them). Not ported yet, and
-refused rather than ignored: several devices (--devices; ROADMAP.md, queue 1).
+refused rather than ignored: several devices (--devices, or `devices` in the
+config; ROADMAP.md, queue 1). A synthetic sequence ignores
+`dataset.train.ratio_uncertain`, as the JAX entry does.
 """
 
 from __future__ import annotations
@@ -55,10 +57,10 @@ def build_sequence(conf, run_dir: str, data_root: str | None = None, num_sample:
             num_frames=train_opt.get("end_frame", 4), num_persons=train_opt.get("num_person", 2),
             height=train_opt.get("height", 48), width=train_opt.get("width", 64), device=device,
         )
+        # as the JAX entry: a synthetic sequence keeps its default ratio_uncertain (0.5)
         return SyntheticSequence(
             scene, num_sample=train_opt.num_sample if num_sample is None else num_sample,
-            using_sam=train_opt.get("using_SAM", True), ratio_uncertain=train_opt.get("ratio_uncertain", 0.5),
-            run_dir=run_dir,
+            using_sam=train_opt.get("using_SAM", True), run_dir=run_dir,
         )
     from ..data.dataset import Hi4DSequence
 
@@ -144,9 +146,10 @@ def build_trainer(args):
     from ..config import load_config
     from ..engine.trainer import Trainer
 
-    if args.devices > 1:
-        raise SystemExit(f"--devices {args.devices}: training on several devices {NOT_PORTED}")
     conf = load_config(args.conf, overrides=parse_overrides(args.sets) or None)
+    devices = args.devices or conf.get("devices", None) or 0
+    if int(devices) > 1:
+        raise SystemExit(f"devices={devices}: training on several devices {NOT_PORTED}")
     run_dir = args.run_dir or os.path.join("outputs", str(conf.get("exp", "exp")), str(conf.get("run", "run")))
     os.makedirs(run_dir, exist_ok=True)
     seq = build_sequence(conf, run_dir, args.data_root, device=args.device)

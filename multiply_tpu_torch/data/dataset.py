@@ -11,7 +11,9 @@ band by `scipy.ndimage`, in place of OpenCV, with OpenCV's results:
     fixed-point BT.601 weights;
   * `edge_band` is `cv2.dilate(m, 5x5) - cv2.erode(m, 5x5) > 0`: outside the
     image the dilation sees 0 and the erosion sees 1, so the border erodes
-    nothing.
+    nothing;
+  * `dilate_box` is `cv2.dilate(m, ones((k, k)))`, with OpenCV's anchor for
+    an even k.
 
 Layout on disk, and of the refinement-loop files in the run directory:
 
@@ -64,6 +66,14 @@ def edge_band(mask: np.ndarray) -> np.ndarray:
     dilated = scipy.ndimage.binary_dilation(m, _BOX5, border_value=0)
     eroded = scipy.ndimage.binary_erosion(m, _BOX5, border_value=1)
     return dilated & ~eroded
+
+
+def dilate_box(mask: np.ndarray, size: int) -> np.ndarray:
+    """`cv2.dilate(mask, np.ones((size, size)))` of a uint8 image: OpenCV
+    anchors the box at (size // 2, size // 2), so each output pixel takes the
+    maximum from size // 2 pixels before it to size // 2 - 1 after it, as
+    `maximum_filter`'s window does; outside the image counts as 0."""
+    return scipy.ndimage.maximum_filter(mask, size=size, mode="constant", cval=0)
 
 
 def bilinear_sample(img: np.ndarray, rows: np.ndarray, cols: np.ndarray) -> np.ndarray:

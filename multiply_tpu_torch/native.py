@@ -123,14 +123,18 @@ def marching_tetrahedra(grid: np.ndarray, iso: float = 0.0) -> tuple[np.ndarray,
     return verts, faces
 
 
-def rasterize_depth(verts_pix: np.ndarray, faces: np.ndarray, width: int, height: int) -> np.ndarray:
+def rasterize_depth(verts_pix: np.ndarray, faces: np.ndarray, width: int, height: int,
+                    return_face_id: bool = False):
     """Z-buffer of a mesh whose vertices are (x pixel, y pixel, camera depth):
-    (height, width) float32 depth, inf where no face covers the pixel."""
+    (height, width) float32 depth, inf where no face covers the pixel, and with
+    `return_face_id` the (height, width) int32 index of the face seen there."""
     lib = _lib()
     verts_pix = np.ascontiguousarray(verts_pix, np.float32)
     faces = np.ascontiguousarray(faces, np.int64)
     if len(faces) and (faces.min() < 0 or faces.max() >= len(verts_pix)):
         raise ValueError("rasterize_depth: face index out of range")
     depth = np.empty((height, width), np.float32)
-    lib.rasterize_depth(_fp(verts_pix), len(verts_pix), _ip(faces), len(faces), width, height, _fp(depth), None)
-    return depth
+    fid = np.empty((height, width), np.int32) if return_face_id else None
+    lib.rasterize_depth(_fp(verts_pix), len(verts_pix), _ip(faces), len(faces), width, height, _fp(depth),
+                        fid.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)) if return_face_id else None)
+    return (depth, fid) if return_face_id else depth

@@ -8,6 +8,10 @@ polls their output files, so `atomic_np_save` writes to a temporary file and
 which the port does not depend on. They take 8-bit gray, RGB and RGBA
 images, non-interlaced; the reader undoes all five row filters and raises on
 any other PNG (palette, gray + alpha, 16-bit, interlaced).
+
+`write_gif` replaces `imageio.mimsave(..., fps=...)`: a looping GIF89a with
+one global palette, the frames' own colours when they have at most 256,
+else a 6 x 7 x 6 colour cube with each channel rounded to its nearest level.
 """
 
 from __future__ import annotations
@@ -138,3 +142,90 @@ def read_png(path: str) -> np.ndarray:
     C = _CHANNELS[color]
     img = _unfilter(zlib.decompress(b"".join(idat)), H, W, C).reshape(H, W, C)
     return img[..., 0] if C == 1 else img
+
+
+_CUBE = (6, 7, 6)  # levels of R, G, B in the palette of frames with more than 256 colours
+
+
+def gif_palette(frames: list[np.ndarray]) -> tuple[np.ndarray, list[np.ndarray]]:
+    """(palette (256, 3) uint8, per frame (H, W) uint8 indices) of (H, W, 3)
+    uint8 frames: their exact colours when there are at most 256, else the
+    colour cube."""
+    flat = np.concatenate([f.reshape(-1, 3) for f in frames])
+    colours, inverse = np.unique(flat, axis=0, return_inverse=True)
+    if len(colours) <= 256:
+        palette = np.zeros((256, 3), np.uint8)
+        palette[: len(colours)] = colours
+        index = inverse.reshape(-1).astype(np.uint8)
+    else:
+        levels = np.asarray(_CUBE)
+        q = np.rint(flat.astype(np.float64) * (levels - 1) / 255.0).astype(np.int64)
+        index = ((q[:, 0] * levels[1] + q[:, 1]) * levels[2] + q[:, 2]).astype(np.uint8)
+        grid = np.stack(np.meshgrid(*(np.arange(n) for n in _CUBE), indexing="ij"), -1).reshape(-1, 3)
+        palette = np.zeros((256, 3), np.uint8)
+        palette[: len(grid)] = np.rint(grid * 255.0 / (levels - 1)).astype(np.uint8)
+    sizes = np.cumsum([0] + [f.shape[0] * f.shape[1] for f in frames])
+    return palette, [index[a:b].reshape(f.shape[:2]) for a, b, f in zip(sizes[:-1], sizes[1:], frames)]
+
+
+def _lzw(indices: bytes, min_size: int = 8) -> bytes:
+    """GIF's variable-width LZW of 8-bit indices, codes packed LSB first."""
+    clear, eoi = 1 << min_size, (1 << min_size) + 1
+    out, acc, nbits = bytearray(), 0, 0
+
+    def emit(code: int, size: int) -> None:
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += size
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+
+    size, next_code, table = min_size + 1, eoi + 1, {}
+    emit(clear, size)
+    w = indices[0]
+    for c in indices[1:]:
+        key = (w, c)
+        code = table.get(key)
+        if code is not None:
+            w = code
+            continue
+        emit(w, size)
+        if next_code >= (1 << size) and size < 12:
+            size += 1
+        if next_code < 4096:
+            table[key] = next_code
+            next_code += 1
+        else:
+            emit(clear, size)
+            size, next_code, table = min_size + 1, eoi + 1, {}
+        w = c
+    emit(w, size)
+    emit(eoi, size)
+    if nbits:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def write_gif(path: str, frames: list[np.ndarray], fps: float = 10.0) -> None:
+    """A looping GIF89a of (H, W, 3) uint8 frames, 1 / fps seconds each (in
+    hundredths), through a temporary file and `os.replace`."""
+    H, W = frames[0].shape[:2]
+    palette, indices = gif_palette(frames)
+    delay = int(round(100.0 / fps))
+    data = bytearray(b"GIF89a" + struct.pack("<HHBBB", W, H, 0xF7, 0, 0) + palette.tobytes())
+    data += b"\x21\xff\x0bNETSCAPE2.0\x03\x01" + struct.pack("<H", 0) + b"\x00"
+    for idx in indices:
+        data += b"\x21\xf9\x04\x00" + struct.pack("<H", delay) + b"\x00\x00"
+        data += b"\x2c" + struct.pack("<HHHHB", 0, 0, W, H, 0) + b"\x08"
+        code = _lzw(idx.tobytes())
+        for i in range(0, len(code), 255):
+            block = code[i : i + 255]
+            data += bytes([len(block)]) + block
+        data += b"\x00"
+    data += b"\x3b"
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(bytes(data))
+    os.replace(tmp, path)

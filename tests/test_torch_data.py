@@ -6,7 +6,8 @@ pickup on a fake preprocessed sequence, and `novel_view_cameras`, against
 and the mask band that replace OpenCV, against OpenCV; the camera
 decomposition and the quaternion pose against OpenCV and the JAX package.
 Also: no module of `multiply_tpu_torch` imports JAX, flax, the JAX package,
-OpenCV, imageio, PIL, orbax or optax.
+OpenCV, imageio, PIL, orbax, optax or transformers; and the training entry
+builds a synthetic sequence as the JAX entry does.
 """
 
 import ast
@@ -28,7 +29,7 @@ from multiply_tpu_torch.utils import cameras as tcam
 from multiply_tpu_torch.utils.io import read_png, write_png
 
 PKG = os.path.join(os.path.dirname(__file__), "..", "multiply_tpu_torch")
-FORBIDDEN = {"jax", "jaxlib", "flax", "multiply_tpu", "cv2", "imageio", "PIL", "orbax", "optax"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "multiply_tpu", "cv2", "imageio", "PIL", "orbax", "optax", "transformers"}
 
 
 def test_port_imports_none_of_the_forbidden_packages():
@@ -390,3 +391,41 @@ def test_novel_view_cameras_match_jax(fake_root):
     for g, w in zip(got, want):
         for k in ("P", "intrinsics", "pose"):
             np.testing.assert_allclose(g[k], w[k], rtol=1e-5, atol=1e-5 * max(1.0, abs(w[k]).max()), err_msg=k)
+
+
+def test_synthetic_sequence_ignores_ratio_uncertain_as_the_jax_entry_does(tmp_path):
+    """`--set dataset.train.ratio_uncertain=0.2` on `confs/synthetic_base.yaml`:
+    the JAX entry (`train.py`) builds its SyntheticSequence without the key,
+    so at the default 0.5; the port's entry ends with the same
+    `uncertain_threshold` once the stage files are picked up."""
+    from multiply_tpu.config import load_config as jax_load_config
+    from multiply_tpu.data.synthetic import make_scene as jax_make_scene
+    from multiply_tpu.data.synthetic_sequence import SyntheticSequence as JaxSequence
+    from multiply_tpu_torch.cli import train as cli_train
+    from multiply_tpu_torch.config import load_config
+
+    sets = ["dataset.train.ratio_uncertain=0.2", "dataset.train.end_frame=5", "dataset.train.height=12",
+            "dataset.train.width=16"]
+    conf_path = os.path.join(os.path.dirname(__file__), "..", "confs", "synthetic_base.yaml")
+    run = str(tmp_path)
+    seq = cli_train.build_sequence(load_config(conf_path, overrides=cli_train.parse_overrides(sets)), run, device="cpu")
+    train_opt = jax_load_config(conf_path, overrides=cli_train.parse_overrides(sets)).dataset.train
+    assert train_opt.ratio_uncertain == 0.2
+    scene = jax_make_scene(num_frames=train_opt.get("end_frame", 4), num_persons=train_opt.get("num_person", 2),
+                           height=train_opt.get("height", 48), width=train_opt.get("width", 64))
+    jseq = JaxSequence(scene, num_sample=train_opt.num_sample, using_sam=train_opt.get("using_SAM", True), run_dir=run)
+    F, P, H, W = 5, 2, 12, 16
+    smpl = np.zeros((F, P, H, W), bool)
+    smpl[:, :, 2:10, 3:12] = True
+    sam = np.where(smpl, 8.0, -8.0).astype(np.float32)
+    for f in range(F):  # frame f's SAM masks lose f + 1 rows: five different IoUs
+        sam[f, :, 2 : 3 + f] = -8.0
+    for stage, name, arr in (("stage_instance_mask", "all_person_smpl_mask.npy", smpl),
+                             ("stage_sam_mask", "sam_opt_mask.npy", sam)):
+        os.makedirs(os.path.join(run, stage, "00000"))
+        np.save(os.path.join(run, stage, "00000", name), arr)
+    seq._refresh_sam()
+    jseq._refresh_sam()
+    assert len(set(np.round(jseq.smpl_sam_iou, 9))) == F
+    assert seq.ratio_uncertain == jseq.ratio_uncertain == 0.5
+    assert seq.uncertain_threshold == jseq.uncertain_threshold

@@ -165,6 +165,13 @@ def test_train_entry_refuses_what_is_not_ported(tmp_path, flags):
         cli_train.main(argv(tmp_path, *flags))
 
 
+def test_train_entry_refuses_devices_in_the_config(tmp_path):
+    """`devices: 2` in the config is refused as `--devices 2` is, before any
+    trainer is built."""
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        cli_train.build_trainer(cli_train.parse_args(argv(tmp_path, sets=("devices=2",))))
+
+
 def test_train_entry_profiles_steps_and_exits(tmp_path):
     """`--profile 2`: two warm steps, two traced, the table written to
     <run_dir>/profile/summary.json, and no training run after it."""
