@@ -8,7 +8,8 @@ Phases, each fatal on failure:
      power limit and turns TF32 off for matmuls and cuDNN;
   2. build: compiles both hand-written kernels from `multiply_tpu_torch/csrc`
      (one nvcc per source, in parallel) into `multiply_tpu_torch/_build`, plus
-     the exactly rounded build of `nn1` that only the checks use; prints
+     the exactly rounded build of `nn1` that only the checks use, then the
+     host C++ (the native mesh code and the JPEG decoder); prints
      ptxas's registers and spills, and for `nn1` the instruction mix of its
      inner loop from `cuobjdump -sass`;
   3. set-up: the synthetic 2-person scene and the per-person state with the
@@ -81,14 +82,29 @@ Phases, each fatal on failure:
      seconds of PnP, refinement (per frame), finalize, set-up with the
      canonical `sdf_grid` bakes on their own, epochs and stages, the test
      entry, launches and peak memory;
- 12. `cli/train.py --profile 3` on path T's configuration and its table of
+ 12. path V, the ViTPose model and JPEG frames (`run_path_v`): the committed
+     JPEG fixtures (`tests/data/torch_jpeg`) decoded bit for bit as OpenCV
+     decoded them and a 540x720 frame's decode time; ViTPose-H at its
+     published widths (hidden 1280, 32 layers, 16 heads, 256x192 crops, the
+     classic decoder, 17 keypoints) with random weights from SEED, written
+     as a `from_pretrained` directory (`config.json`, `model.safetensors`)
+     and loaded by `VitPoseDetector`: the card's heatmaps held to the same
+     module's f32 forward on the CPU (VITPOSE_REL_TOL), the forward timed at
+     2 and 8 crops beside its bound, its launches and peak memory; one
+     forward of the simple decoder at ViTPose-B widths; then the
+     preprocessing entry on path P's scene with its frames as JPEG (a
+     scaffold baseline encoder, held to the source by PSNR) and `--vitpose`:
+     every frame's boxes reach the detector, every keypoint handed to the
+     refinement is finite and every file is written;
+ 13. `cli/train.py --profile 3` on path T's configuration and its table of
      device time by category.
-Each of the paths 5-7 and 9-11 zeroes the kernels' launch counters just
+Each of the paths 5-7 and 9-12 zeroes the kernels' launch counters just
 before it and reads them just after. Prints the `{"kernels": [...]}` line,
 then the nvidia-smi line, then `{"ok": true, "device": {...}}` as the last
 line.
 """
 
+import copy
 import json
 import math
 import os
@@ -137,6 +153,14 @@ PREP_HW = (540, 720)  # tracker frames; the training images are half that (--sca
 PREP_FOCAL, PREP_CENTER = 720.0, (360.5, 270.5)
 PREP_EPOCHS = 2
 PREP_SMPL_INIT_STEPS = 50  # of the configured 2000
+# path V: ViTPose at the reference's widths (ViTPose-H, classic decoder) and JPEG frames of path P's scene
+VITPOSE_H = {"hidden_size": 1280, "num_hidden_layers": 32, "num_attention_heads": 16}
+VITPOSE_B = {"hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12}
+VITPOSE_CROPS = (2, 8)  # crops a frame: the timed forwards
+VITPOSE_CHECK_CROPS = 2  # crops held to the CPU's f32 forward
+VITPOSE_REL_TOL = 1e-4  # max |card - CPU| of the heatmaps over their max |CPU|, both f32 with TF32 off
+JPEG_QUALITY = 95
+JPEG_MIN_PSNR = 25.0  # dB of the scaffold encoder's frames; OpenCV's own encoder at 95, 4:2:0: 28.8 on such noise
 
 
 def log(*args):
@@ -1370,7 +1394,8 @@ def run_path_p():
         b["shape"] = f"points {tuple(pts.shape)} res {res} group={group}"
     held_err = {k: max((e for key, e in held_shapes.items() if key[0] == k), default=None)
                 for k in ("nn1", "grid_trilinear")}
-    out.update(nn1=a, grid=b, held=held_shapes, held_err=held_err, path_s=time.perf_counter() - t_path)
+    out.update(nn1=a, grid=b, held=held_shapes, held_err=held_err, path_s=time.perf_counter() - t_path,
+               smpl_dir=smpl_dir)
     log(f"path P kernels at the trainer's shapes: nn1 {a['shape']}: call {a['ms']:.4f} ms, queued "
         f"{a['queued_ms']:.4f} ms, device (profiler) {a['device_ms']} ms, host {a['host_us']:.2f} us, bound "
         f"{a['bound_ms']:.4f} ms ({a['bound_by']}), plain {a['plain_ms']:.4f} ms, cdist+min {a['library_ms']:.4f} ms; "
@@ -1382,6 +1407,394 @@ def run_path_p():
         f"{out['path_s']:.1f} s")
     del trainer, seq, body
     torch.cuda.empty_cache()
+    return out
+
+
+# ---- path V: the ViTPose model and JPEG frames ----
+
+def _annex_k_ac(counts, head):
+    """Annex K.3's AC tables: their first symbols as listed there, then every
+    other (run, size) symbol in increasing order."""
+    rest = sorted({0x00, 0xF0, *(r << 4 | s for r in range(16) for s in range(1, 11))} - set(head))
+    return counts, list(head) + rest
+
+
+# ITU-T T.81 Annex K.1: the quantisation tables for quality 50, natural order
+K1_LUMA = (16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69, 56,
+           14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+           49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99)
+K2_CHROMA = (17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99, 99, 99, 99, 99,
+             47, 66, 99, 99, 99, 99, 99, 99) + (99,) * 32
+ZIGZAG = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7,
+          14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39,
+          46, 53, 60, 61, 54, 47, 55, 62, 63)
+# Annex K.3: (codes of each length 1-16, symbols) of DC luminance, DC chrominance, AC luminance, AC chrominance
+ANNEX_K_HUFFMAN = (
+    ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), list(range(12))),
+    ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0), list(range(12))),
+    _annex_k_ac((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125),
+                (1, 2, 3, 0, 4, 17, 5, 18, 33, 49, 65, 6, 19, 81, 97, 7, 34, 113, 20, 50, 129, 145, 161, 8, 35, 66,
+                 177, 193, 21, 82, 209, 240, 36, 51, 98, 114, 130)),
+    _annex_k_ac((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119),
+                (0, 1, 2, 3, 17, 4, 5, 33, 49, 6, 18, 65, 81, 7, 97, 113, 19, 34, 50, 129, 8, 20, 66, 145, 161, 177,
+                 193, 9, 35, 51, 82, 240, 21, 98, 114, 209, 10, 22, 36, 52, 225, 37, 241)),
+)
+
+
+def encode_jpeg(img, quality=JPEG_QUALITY):
+    """Scaffolding for path V, whose machine has no JPEG encoder: a baseline
+    JFIF file of an (H, W, 3) uint8 RGB image, 4:2:0 (Cb and Cr averaged over
+    2x2), float DCT, the Annex K tables with the quantisation scaled to
+    `quality` as libjpeg scales it, one interleaved scan."""
+    import struct
+
+    import numpy as np
+
+    H, W, _ = img.shape
+    scale = 5000 / quality if quality < 50 else 200 - 2 * quality
+    qts = [np.clip((np.asarray(t) * scale + 50) // 100, 1, 255).astype(np.int64) for t in (K1_LUMA, K2_CHROMA)]
+    Hp, Wp = -(-H // 16) * 16, -(-W // 16) * 16
+    x = np.pad(img.astype(np.float64), ((0, Hp - H), (0, Wp - W), (0, 0)), mode="edge")
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    planes = [0.299 * r + 0.587 * g + 0.114 * b,
+              -0.168736 * r - 0.331264 * g + 0.5 * b + 128, 0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+    planes[1:] = [p.reshape(Hp // 2, 2, Wp // 2, 2).mean((1, 3)) for p in planes[1:]]
+    u = np.arange(8)
+    dct = np.sqrt(2 / 8) * np.cos((2 * u[None] + 1) * u[:, None] * np.pi / 16)
+    dct[0] /= np.sqrt(2)
+    coefs = []
+    for p, qt in zip(planes, (qts[0], qts[1], qts[1])):
+        blocks = (p - 128).reshape(p.shape[0] // 8, 8, p.shape[1] // 8, 8).transpose(0, 2, 1, 3)
+        q = np.rint(dct @ blocks @ dct.T / qt.reshape(8, 8)).astype(np.int64)
+        coefs.append(q.reshape(q.shape[0], q.shape[1], 64)[..., list(ZIGZAG)])
+    codes = []
+    for counts, symbols in ANNEX_K_HUFFMAN:  # canonical codes, as bit strings
+        table, code, k = {}, 0, 0
+        for length, n in enumerate(counts, 1):
+            for _ in range(n):
+                table[symbols[k]] = format(code, f"0{length}b")
+                code, k = code + 1, k + 1
+            code <<= 1
+        codes.append(table)
+
+    def magnitude(v):
+        size = int(abs(v)).bit_length()
+        return size, (format(v if v >= 0 else v + (1 << size) - 1, f"0{size}b") if size else "")
+
+    bits, pred = [], [0, 0, 0]
+
+    def block(zz, c):
+        dc, ac = codes[0 if c == 0 else 1], codes[2 if c == 0 else 3]
+        size, mag = magnitude(int(zz[0]) - pred[c])
+        pred[c] = int(zz[0])
+        bits.append(dc[size] + mag)
+        last = 0
+        for k in np.flatnonzero(zz[1:]) + 1:
+            run = k - last - 1
+            while run > 15:
+                bits.append(ac[0xF0])
+                run -= 16
+            size, mag = magnitude(int(zz[k]))
+            bits.append(ac[run << 4 | size] + mag)
+            last = k
+        if last < 63:
+            bits.append(ac[0x00])
+
+    for my in range(Hp // 16):
+        for mx in range(Wp // 16):
+            for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+                block(coefs[0][2 * my + dy, 2 * mx + dx], 0)
+            block(coefs[1][my, mx], 1)
+            block(coefs[2][my, mx], 2)
+    stream = "".join(bits)
+    stream += "1" * (-len(stream) % 8)
+    data = int(stream, 2).to_bytes(len(stream) // 8, "big").replace(b"\xff", b"\xff\x00")
+
+    def segment(marker, payload):
+        return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
+
+    dqt = b"".join(bytes([i]) + bytes(int(t[z]) for z in ZIGZAG) for i, t in enumerate(qts))
+    dht = b"".join(bytes([cls << 4 | tid]) + bytes(counts) + bytes(symbols)
+                   for (counts, symbols), (cls, tid) in zip(ANNEX_K_HUFFMAN, ((0, 0), (0, 1), (1, 0), (1, 1))))
+    return (b"\xff\xd8" + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00") + segment(0xDB, dqt)
+            + segment(0xC0, struct.pack(">BHHB", 8, H, W, 3) + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
+            + segment(0xC4, dht) + segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])) + data
+            + b"\xff\xd9")
+
+
+def write_safetensors(path, state):
+    """Scaffolding for path V: a state dict (f32 and int64 tensors) in the
+    safetensors layout that `save_pretrained` writes."""
+    import struct
+
+    import torch
+
+    names = {torch.float32: "F32", torch.int64: "I64"}
+    header, offset, blobs = {}, 0, []
+    for name, t in state.items():
+        data = t.detach().contiguous().cpu().numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + len(data)]}
+        offset += len(data)
+        blobs.append(data)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for data in blobs:
+            f.write(data)
+
+
+def vitpose_config_json(backbone, **top):
+    """The `config.json` of a `VitPoseForPoseEstimation` directory."""
+    layers = backbone["num_hidden_layers"]
+    bb = {"model_type": "vitpose_backbone", "image_size": [256, 192], "patch_size": [16, 16], "num_channels": 3,
+          "mlp_ratio": 4, "hidden_act": "gelu", "layer_norm_eps": 1e-6, "qkv_bias": True, "num_experts": 1,
+          "out_indices": [layers], "out_features": [f"stage{layers}"], **backbone}
+    return {"model_type": "vitpose", "architectures": ["VitPoseForPoseEstimation"], "backbone_config": bb,
+            "use_simple_decoder": True, "scale_factor": 4,
+            "id2label": {str(i): f"LABEL_{i}" for i in range(17)}, **top}
+
+
+def random_vitpose(cfg, gen, dev):
+    """A `VitPose` on `dev` with `transformers`' initialisation drawn from
+    `gen`: weights of the linear and convolution layers and the position
+    embedding truncated normal (std 0.02), biases 0, norms 1 and 0."""
+    import torch
+
+    from multiply_tpu_torch.models.vitpose import VitPose
+
+    with torch.device("meta"):
+        model = VitPose(cfg)
+    model.to_empty(device=dev)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() > 1:
+                torch.nn.init.trunc_normal_(p, std=0.02, generator=gen)
+            elif "norm" in name and name.endswith("weight"):
+                p.fill_(1.0)
+            else:
+                p.zero_()
+        for name, b in model.named_buffers():
+            b.fill_(1 if name.endswith("running_var") else 0)
+    return model
+
+
+def vitpose_flops(cfg, crops):
+    """Multiply-adds x 2 of one forward over `crops` crops, from the shapes:
+    the patch embedding, each encoder layer (q/k/v/output projections, the
+    two attention products, the MLP) and the head (a stride-2 4x4 transposed
+    convolution has 4 taps an output)."""
+    gh, gw = cfg.grid
+    n, c = gh * gw, cfg.hidden_size
+    hidden = int(c * cfg.mlp_ratio)
+    flops = 2 * n * c * cfg.num_channels * cfg.patch_size[0] * cfg.patch_size[1]
+    flops += cfg.out_index * (2 * 4 * n * c * c + 2 * 2 * n * n * c + 2 * 2 * n * c * hidden)
+    if cfg.use_simple_decoder:
+        flops += 2 * (gh * cfg.scale_factor) * (gw * cfg.scale_factor) * c * 9 * cfg.num_labels
+    else:
+        flops += 2 * (2 * gh) * (2 * gw) * 256 * c * 4 + 2 * (4 * gh) * (4 * gw) * 256 * 256 * 4
+        flops += 2 * (4 * gh) * (4 * gw) * 256 * cfg.num_labels
+    return crops * flops
+
+
+def run_path_v(smpl_dir):
+    """Path V: the ViTPose model and JPEG frames. (a) the committed JPEG
+    fixtures decoded bit for bit as OpenCV decodes them, and a 540x720
+    frame's decode time; (b) ViTPose-H at its published widths with random
+    weights from SEED, written as a `from_pretrained` directory and loaded by
+    the detector: the card's heatmaps held to the same module's f32 forward
+    on the CPU, the forward timed at P = 2 and 8 crops beside its bound, and
+    one forward of the simple decoder at ViTPose-B widths; (c) the
+    preprocessing entry on path P's scene with JPEG frames and `--vitpose`:
+    every frame's boxes reach the detector, every keypoint handed to the
+    refinement is finite, every file is written. Returns a dict of what it
+    measured."""
+    import gc
+    import glob
+
+    import numpy as np
+    import torch
+
+    from multiply_tpu_torch.models.vitpose import VitPoseConfig
+    from multiply_tpu_torch.preprocessing import pipeline
+    from multiply_tpu_torch.preprocessing import vitpose as vitpose_module
+    from multiply_tpu_torch.preprocessing.__main__ import main as preprocess_main
+    from multiply_tpu_torch.preprocessing.vitpose_processing import preprocess
+    from multiply_tpu_torch.utils.io import read_png
+    from multiply_tpu_torch.utils.jpeg import decode_jpeg, read_jpeg
+
+    dev = "cuda"
+    root = os.path.join(ROOT, "outputs", "chip_smoke_path_v")
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt, frames_dir, data_dir = (os.path.join(root, d) for d in ("vitpose_h", "frames_jpeg", "data"))
+    os.makedirs(ckpt)
+    out = {}
+    gc.collect()  # earlier paths' trainers hold reference cycles: free their tensors before the peaks are read
+    torch.cuda.empty_cache()
+    zero_counts()
+    t_path = time.perf_counter()
+    try:
+        # ---- (a) JPEG ----
+        fixtures = sorted(glob.glob(os.path.join(ROOT, "tests", "data", "torch_jpeg", "*.jpg")))
+        assert len(fixtures) == 10, fixtures
+        for path in fixtures:
+            got, want = read_jpeg(path), read_png(path[:-4] + ".png")
+            assert got.shape == want.shape and np.array_equal(got, want), f"{path}: not OpenCV's pixels"
+        with open(os.path.join(ROOT, "tests", "data", "torch_jpeg", "frame_540x720.jpg"), "rb") as f:
+            frame_bytes = f.read()
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            decode_jpeg(frame_bytes)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["decode_ms"] = median(times)
+        log(f"path V JPEG: {len(fixtures)} fixtures decoded bit for bit as OpenCV decodes them "
+            f"({', '.join(os.path.basename(p)[:-4] for p in fixtures)}); 540x720 4:2:0 frame decoded in "
+            f"{out['decode_ms']:.3f} ms (host clock, median of 20)")
+
+        # ---- (b) ViTPose-H at its published widths ----
+        t0 = time.perf_counter()
+        conf_h = vitpose_config_json(VITPOSE_H, use_simple_decoder=False)
+        cfg = VitPoseConfig.from_dict(conf_h)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        model = random_vitpose(cfg, gen, dev)
+        with torch.no_grad():
+            model.backbone.embeddings.position_embeddings.normal_(0.0, 0.02, generator=gen)
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            json.dump(conf_h, f)
+        write_safetensors(os.path.join(ckpt, "model.safetensors"), model.state_dict())
+        out["n_params"] = sum(p.numel() for p in model.parameters())
+        out["write_s"] = time.perf_counter() - t0
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        det = vitpose_module.VitPoseDetector(checkpoint=ckpt, device=dev)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        assert next(det.model.parameters()).device.type == "cuda" and det.cfg.hidden_size == 1280
+        assert (det.processor.height, det.processor.width) == (256, 192) and det.cfg.out_index == 32
+        flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        assert flags == (False, False), f"TF32 (matmul, cuDNN) {flags} with the ViTPose model built"
+        log(f"path V ViTPose-H: {out['n_params'] / 1e6:.3f} M parameters, random weights written as a "
+            f"from_pretrained directory in {out['write_s']:.1f} s "
+            f"({os.path.getsize(os.path.join(ckpt, 'model.safetensors')) / 2**30:.3f} GiB), loaded by the "
+            f"detector in {out['load_s']:.1f} s")
+
+        # crops of path P's scene: the scene is written for (c), its boxes prompt every crop here
+        npz, png_dir, kps = write_tracker_output(root, smpl_dir)
+        images = [read_png(os.path.join(png_dir, f"{f:04d}.png")) for f in range(PREP_FRAMES)]
+        boxes = []
+        for f in range(PREP_FRAMES):
+            for p in range(PREP_PERSONS):
+                (x0, y0), (x1, y1) = kps[f, p, :, :2].min(0), kps[f, p, :, :2].max(0)
+                boxes.append((f, [x0 - 0.2 * (x1 - x0), y0 - 0.2 * (y1 - y0), 1.4 * (x1 - x0), 1.4 * (y1 - y0)]))
+        crops = np.concatenate([preprocess(images[f], np.asarray([b], np.float32), det.processor) for f, b in boxes])
+        crops = np.concatenate([crops] * (max(VITPOSE_CROPS) // len(crops) + 1))[:max(VITPOSE_CROPS)]
+        x = torch.from_numpy(crops).to(dev)
+        cpu_model = copy.deepcopy(det.model).cpu()
+        with torch.inference_mode():
+            card = det.model(x[:VITPOSE_CHECK_CROPS]).cpu()
+            t0 = time.perf_counter()
+            ref = cpu_model(x[:VITPOSE_CHECK_CROPS].cpu())
+            out["cpu_s"] = time.perf_counter() - t0
+        del cpu_model
+        assert card.shape == (VITPOSE_CHECK_CROPS, 17, 64, 48) and torch.isfinite(card).all(), card.shape
+        scale = ref.abs().max().item()
+        out["heatmap_err"] = (card - ref).abs().max().item()
+        out["heatmap_scale"] = scale
+        log(f"path V ViTPose-H heatmaps, {VITPOSE_CHECK_CROPS} crops: card vs CPU f32 max abs error "
+            f"{out['heatmap_err']:.3e} over a heatmap scale {scale:.3e} (relative {out['heatmap_err'] / scale:.3e}, "
+            f"bound {VITPOSE_REL_TOL:g}); CPU forward {out['cpu_s']:.1f} s")
+        assert out["heatmap_err"] <= VITPOSE_REL_TOL * scale, "ViTPose-H: the card disagrees with the CPU"
+
+        out["fwd"] = {}
+        with torch.inference_mode():
+            for n in VITPOSE_CROPS:
+                xn = x[:n]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated() / 2**30  # the weights and the crops
+                det.model(xn)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                ms = cuda_time_ms(lambda: det.model(xn), reps=20, warmup=3)
+                gemm_ms, launches = device_time_ms(lambda: det.model(xn), "gemm", reps=3)
+                flops = vitpose_flops(cfg, n)
+                moved = out["n_params"] * 4 + xn.numel() * 4 + n * 17 * 64 * 48 * 4
+                bound = max(flops / PEAK_FP32_FLOPS, moved / PEAK_BYTES) * 1e3
+                out["fwd"][n] = {"ms": ms, "bound_ms": bound, "tflop": flops / 1e12, "peak_gib": peak, "held_gib": held,
+                                 "launches": launches, "gemm_ms": gemm_ms,
+                                 "bound_by": "operations" if flops / PEAK_FP32_FLOPS > moved / PEAK_BYTES else "bytes"}
+                log(f"path V ViTPose-H forward, {n} crops of 256x192: {ms:.3f} ms (CUDA events, median of 20), "
+                    f"bound {bound:.3f} ms ({out['fwd'][n]['bound_by']}: {flops / 1e12:.4f} TFLOP at 67 TFLOP/s f32), "
+                    f"{bound / ms:.3f} of it; GEMM kernels {gemm_ms} ms (profiler); {launches:.0f} kernel launches; "
+                    f"peak memory {peak:.3f} GiB, of it {held:.3f} GiB allocated before the forward")
+            t0 = time.perf_counter()
+            dets = det(images[0], np.asarray([b for f, b in boxes if f == 0], np.float32))
+            out["frame_s"] = time.perf_counter() - t0
+        assert len(dets) == PREP_PERSONS and all(d.shape == (17, 3) and np.isfinite(d).all() for d in dets)
+        log(f"path V detector, one frame of {PREP_PERSONS} boxes (warp, forward, DARK): {out['frame_s'] * 1e3:.1f} ms")
+
+        cfg_b = VitPoseConfig.from_dict(vitpose_config_json(VITPOSE_B))
+        model_b = random_vitpose(cfg_b, gen, dev)
+        with torch.inference_mode():
+            hb = model_b(x[:2])
+            out["b_ms"] = cuda_time_ms(lambda: model_b(x[:2]), reps=5, warmup=1)
+        assert hb.shape == (2, 17, 64, 48) and torch.isfinite(hb).all(), hb.shape
+        log(f"path V ViTPose-B, simple decoder: (2, 17, 64, 48) finite heatmaps, {out['b_ms']:.3f} ms for 2 crops")
+        del model_b, det, x
+        torch.cuda.empty_cache()
+
+        # ---- (c) the preprocessing entry on JPEG frames with --vitpose ----
+        os.makedirs(frames_dir)
+        psnr = []
+        for f, img in enumerate(images):
+            data = encode_jpeg(img)
+            with open(os.path.join(frames_dir, f"{f:04d}.jpg"), "wb") as fh:
+                fh.write(data)
+            mse = float(((decode_jpeg(data).astype(np.float64) - img) ** 2).mean())
+            psnr.append(10 * math.log10(255 ** 2 / mse))
+        assert min(psnr) > JPEG_MIN_PSNR, f"scaffold encoder: PSNR {psnr}"
+        crops_seen, dets_seen, kept = [], [], {}
+        call, refine_sequence = vitpose_module.VitPoseDetector.__call__, pipeline.refine_sequence
+
+        def counted_call(self, image, boxes):
+            crops_seen.append(len(boxes))
+            result = call(self, image, boxes)
+            dets_seen.extend(result)
+            return result
+
+        def kept_sequence(server, K, R, t, poses, transl, betas, keypoints_2d, cfg):
+            kept["kp"] = keypoints_2d
+            return refine_sequence(server, K, R, t, poses, transl, betas, keypoints_2d, cfg)
+
+        vitpose_module.VitPoseDetector.__call__, pipeline.refine_sequence = counted_call, kept_sequence
+        try:
+            t0 = time.perf_counter()
+            seconds = preprocess_main(["--trace", npz, "--frames", frames_dir, "--out", data_dir, "--vitpose", ckpt,
+                                       "--smpl_model", os.path.join(smpl_dir, "SMPL_NEUTRAL.pkl"), "--focal",
+                                       str(PREP_FOCAL), "--center", *map(str, PREP_CENTER), "--device", dev])
+            out["entry_s"] = time.perf_counter() - t0
+        finally:
+            vitpose_module.VitPoseDetector.__call__, pipeline.refine_sequence = call, refine_sequence
+        assert crops_seen == [PREP_PERSONS] * PREP_FRAMES, f"crops a frame {crops_seen}"
+        kp = kept["kp"].cpu().numpy() if torch.is_tensor(kept["kp"]) else np.asarray(kept["kp"])
+        assert kp.shape == (PREP_FRAMES, PREP_PERSONS, 17, 3) and np.isfinite(kp).all(), kp.shape
+        missing = [f for f in (*pipeline.FILES, *(f"image/{i:04d}.png" for i in range(PREP_FRAMES)),
+                               *(f"mask/{p}/{i:04d}.png" for p in range(PREP_PERSONS) for i in range(PREP_FRAMES)))
+                   if not os.path.exists(os.path.join(data_dir, f))]
+        assert not missing, f"the entry did not write {missing}"
+        cleared = sum(float(d[:, 2].mean()) >= 0.3 for d in dets_seen)
+        out.update(psnr=psnr, crops=sum(crops_seen), cleared=cleared, stage_s=seconds)
+        log(f"path V entry: {PREP_FRAMES} JPEG frames of {PREP_HW[0]}x{PREP_HW[1]} (scaffold encoder, quality "
+            f"{JPEG_QUALITY}, 4:2:0, PSNR {[round(p, 2) for p in psnr]} dB) with --vitpose: {sum(crops_seen)} crops "
+            f"reached the detector, {cleared} of {len(dets_seen)} detections cleared conf_floor 0.3; every keypoint "
+            f"handed to the refinement finite; every file written; {out['entry_s']:.1f} s (stages {seconds})")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out["launches"] = read_counts()
+    out["path_s"] = time.perf_counter() - t_path
+    log(f"path V: {out['path_s']:.1f} s in all; launches of the port's kernels {out['launches']}")
     return out
 
 
@@ -1416,13 +1829,16 @@ def main() -> int:
 
     # ---------------- 2. build ----------------
     from multiply_tpu_torch import native
+    from multiply_tpu_torch.utils import jpeg
 
     libs = (*cuda_build.KERNELS, *cuda_build.VARIANTS)
     build_s, build_logs = cuda_build.build_all(libs)
     t0 = time.perf_counter()
     native._lib()  # the host C++ of path T
+    t1 = time.perf_counter()
+    jpeg._lib()  # the host JPEG decoder of path V
     log(f"build: {build_s:.1f} s for {', '.join(libs)}; native host library {cuda_build.BUILD_DIR}/libmultiply_host.so "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{t1 - t0:.1f} s; JPEG decoder libjpeg_decode.so {time.perf_counter() - t1:.1f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -1698,7 +2114,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     path_p = run_path_p()
 
-    # ---------------- 12. --profile on path T's configuration ----------------
+    # ---------------- 12. path V: ViTPose and JPEG frames ----------------
+    torch.cuda.empty_cache()
+    path_v = run_path_v(path_p["smpl_dir"])
+
+    # ---------------- 13. --profile on path T's configuration ----------------
     t0 = time.perf_counter()
     prof = run_profile()
     log(f"--profile {prof['steps']} ({time.perf_counter() - t0:.1f} s with its set-up): {prof['wall_s']:.3f} s "
@@ -1708,10 +2128,11 @@ def main() -> int:
 
     launches_by_path = {"parity": launches, "fast": launches_f, "pose": launches_p,
                         "trainer": path_t["launches_a"], "trainer_pose": path_t["launches_b"],
-                        "sam": path_s["launches"], "preprocessed": path_p["launches"]}
+                        "sam": path_s["launches"], "preprocessed": path_p["launches"],
+                        "vitpose_jpeg": path_v["launches"]}
     steps_by_path = {"parity": STEPS, "fast": STEPS_FAST, "pose": STEPS_POSE,
                      "trainer": path_t["steps_a"], "trainer_pose": path_t["steps_b"],
-                     "sam": path_s["steps"], "preprocessed": path_p["steps"]}
+                     "sam": path_s["steps"], "preprocessed": path_p["steps"], "vitpose_jpeg": 0}
     # the trainer's counts hold its stages' launches too: per step only for the step paths
     per_step = {path: {k: n / steps_by_path[path] for k, n in launches_by_path[path].items()}
                 for path in ("parity", "fast", "pose")}

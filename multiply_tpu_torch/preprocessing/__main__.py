@@ -2,16 +2,16 @@
 
     python -m multiply_tpu_torch.preprocessing \
         --trace raw_data/<seq>/trace/<seq>.npz --frames raw_data/<seq>/frames --out data/<seq> \
-        [--keypoints <dir of per-frame (D, J, 3) npys>] [--smpl_model <SMPL .pkl or directory>] \
+        [--keypoints <dir of per-frame (D, J, 3) npys> | --vitpose <from_pretrained dir>] \
+        [--smpl_model <SMPL .pkl or directory>] \
         [--genders neutral neutral] [--focal F --center CX CY] [--scale_factor 2] [--refine_iters 150] \
         [--video raw.mp4 ...] [--device cuda]
 
 Counterpart of `python -m multiply_tpu.preprocessing`, with the same flags
 plus --device: reformat -> mask (PnP init) -> refine -> final -> normalize.
 ffmpeg and TRACE stay external programs (--video runs them). The frames are
-PNG. Runs on the card; `--device cpu` is for tests. Not ported yet, and
-refused rather than ignored: --vitpose (the ViTPose model; ROADMAP.md,
-queue 1).
+PNG or JPEG; --vitpose runs the ViTPose model of a local `from_pretrained`
+directory over them. Runs on the card; `--device cpu` is for tests.
 """
 
 from __future__ import annotations
@@ -21,8 +21,6 @@ import os
 import shutil
 
 import numpy as np
-
-from . import NOT_PORTED
 
 
 def parse_args(argv=None):
@@ -41,7 +39,8 @@ def parse_args(argv=None):
     ap.add_argument("--out", required=True, help="output training data directory")
     ap.add_argument("--keypoints", default=None,
                     help="dir of per-frame keypoint npys (D,J,3); falls back to TRACE's projected joints")
-    ap.add_argument("--vitpose", default=None, help=f"local ViTPose checkpoint dir: the model {NOT_PORTED}")
+    ap.add_argument("--vitpose", default=None,
+                    help="local ViTPose from_pretrained dir: detect the keypoints in the frames (COCO-17)")
     ap.add_argument("--kp_format", default="coco17", choices=["coco17", "openpose25"],
                     help="keypoint layout: ViTPose/COCO-17 or OpenPose BODY_25")
     ap.add_argument("--smpl_model", default=None,
@@ -61,8 +60,6 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     """Preprocess as asked; returns the seconds of each stage."""
     args = parse_args(argv)
-    if args.vitpose is not None:
-        raise SystemExit(f"--vitpose {args.vitpose}: the ViTPose model {NOT_PORTED}")
 
     from ..body.server import SMPLServer
     from ..body.smpl import load_smpl_model, synthetic_body_model
@@ -89,7 +86,7 @@ def main(argv=None) -> dict:
 
     inputs = trace_inputs_from_files(args.trace, args.frames, K=K, genders=args.genders,
                                      keypoints_dir=args.keypoints, start=args.start, end=args.end, skip=args.skip,
-                                     kp_format=args.kp_format)
+                                     kp_format=args.kp_format, vitpose_checkpoint=args.vitpose, device=args.device)
     F, P = inputs.poses.shape[:2]
     print(f"{F} frames, {P} persons, image {inputs.images[0].shape[:2]}")
 

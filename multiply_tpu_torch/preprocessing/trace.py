@@ -6,9 +6,10 @@ frames and `track_ids` to persons, and the reformat gives [person, frame,
 ...] arrays. The keypoints are external COCO-17 detections matched to the
 tracks when given, else TRACE's own projected joints (`pj2d_org`).
 
-Frames are read by `utils/io.read_png` (RGB, as `cv2.imread(...)[:, :, ::-1]`
-gives them). Not ported yet, and refused rather than ignored: JPEG frames
-and the ViTPose model (`vitpose_checkpoint`); ROADMAP.md, queue 1.
+Frames, PNG or JPEG, are read by `utils/io.read_image` (RGB, as
+`cv2.imread(..., cv2.IMREAD_COLOR)[:, :, ::-1]` gives them). With a
+`vitpose_checkpoint`, the ViTPose model (`vitpose.VitPoseDetector`) detects
+the keypoints on the caller's device.
 """
 
 from __future__ import annotations
@@ -18,8 +19,7 @@ import os
 
 import numpy as np
 
-from ..utils.io import read_png
-from . import NOT_PORTED
+from ..utils.io import read_image
 from .matching import keypoint_center, match_detections_to_tracks, skeleton_nms
 from .pipeline import TraceInputs
 
@@ -111,16 +111,16 @@ def load_keypoint_npys(kp_dir: str, tracked_kp: np.ndarray, nms_center_px: float
 
 
 def vitpose_keypoints(images: list[np.ndarray], tracked_kp: np.ndarray, checkpoint: str | None = None,
-                      detector=None, box_pad: float = 0.2) -> np.ndarray:
+                      detector=None, box_pad: float = 0.2, device="cuda") -> np.ndarray:
     """Per frame, a padded COCO box [x, y, w, h] around each track's anchor
-    keypoints prompts `detector(image, boxes) -> [(17, 3)]`; the detections
-    are de-duplicated and matched back to the tracks, which keep their
-    anchors where nothing matched. A `checkpoint` (the ViTPose model itself)
-    is refused."""
+    keypoints prompts `detector(image, boxes) -> [(17, 3)]` (by default the
+    ViTPose model of `checkpoint` on `device`); the detections are
+    de-duplicated and matched back to the tracks, which keep their anchors
+    where nothing matched."""
     from .vitpose import VitPoseDetector, detect_and_track
 
     if detector is None:
-        detector = VitPoseDetector(checkpoint=checkpoint)
+        detector = VitPoseDetector(checkpoint=checkpoint, device=device)
     P = tracked_kp.shape[1]
     out = tracked_kp.copy()
     for f, img in enumerate(images):
@@ -146,24 +146,21 @@ def vitpose_keypoints(images: list[np.ndarray], tracked_kp: np.ndarray, checkpoi
 def trace_inputs_from_files(trace_npz: str, frames_dir: str, K: np.ndarray | None = None,
                             genders: list[str] | None = None, keypoints_dir: str | None = None, start: int = 0,
                             end: int | None = None, skip: int = 1, kp_format: str = "coco17",
-                            vitpose_checkpoint: str | None = None) -> TraceInputs:
-    """`TraceInputs` from a TRACE npz and a directory of PNG frames, with
-    optional per-frame keypoint npys. Without K: focal max(H, W) and the
-    principal point (W // 2, H // 2)."""
+                            vitpose_checkpoint: str | None = None, device="cuda") -> TraceInputs:
+    """`TraceInputs` from a TRACE npz and a directory of PNG and JPEG frames,
+    with optional per-frame keypoint npys or a ViTPose checkpoint (run on
+    `device`). Without K: focal max(H, W) and the principal point
+    (W // 2, H // 2)."""
     results = load_trace_results(trace_npz)
     thetas = np.asarray(results["smpl_thetas"], np.float32)  # (P, F, 72)
     betas_pf = np.asarray(results["smpl_betas"], np.float32)[..., :10]
     cam_trans = np.asarray(results["cam_trans"], np.float32)
     P, F_trace = thetas.shape[:2]
 
-    jpgs = glob.glob(os.path.join(frames_dir, "*.jpg"))
-    if jpgs:
-        raise NotImplementedError(f"JPEG frames ({len(jpgs)} *.jpg in {frames_dir}): reading JPEG {NOT_PORTED}")
-    frame_files = sorted(glob.glob(os.path.join(frames_dir, "*.png")))
+    frame_files = sorted(glob.glob(os.path.join(frames_dir, "*.png")) + glob.glob(os.path.join(frames_dir, "*.jpg")))
     end = min(end if end is not None else F_trace, F_trace, len(frame_files))
     sel = list(range(start, end, skip))
-    images = [read_png(frame_files[f]) for f in sel]
-    images = [np.repeat(im[..., None], 3, -1) if im.ndim == 2 else im[..., :3] for im in images]
+    images = [read_image(frame_files[f]) for f in sel]
 
     if K is None:
         H, W = images[0].shape[:2]
@@ -176,7 +173,7 @@ def trace_inputs_from_files(trace_npz: str, frames_dir: str, K: np.ndarray | Non
     elif vitpose_checkpoint is not None:
         if kp_format != "coco17":
             raise ValueError("ViTPose inference emits COCO-17 keypoints")
-        kp = vitpose_keypoints(images, kp, checkpoint=vitpose_checkpoint)
+        kp = vitpose_keypoints(images, kp, checkpoint=vitpose_checkpoint, device=device)
 
     # mean shape over the frames each track was detected in
     if "valid" in results:

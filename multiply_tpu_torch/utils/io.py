@@ -5,7 +5,8 @@ polls their output files, so `atomic_np_save` writes to a temporary file and
 `os.replace`s it: a reader never sees a half-written array.
 
 `write_png` / `read_png` replace `imageio`, `cv2.imwrite` and `cv2.imread`,
-which the port does not depend on. They take 8-bit gray, RGB and RGBA
+which the port does not depend on; `read_image` reads a PNG or a JPEG
+(`utils/jpeg.py`) as `cv2.imread(path, cv2.IMREAD_COLOR)[:, :, ::-1]` does. They take 8-bit gray, RGB and RGBA
 images, non-interlaced; the reader undoes all five row filters and raises on
 any other PNG (palette, gray + alpha, 16-bit, interlaced).
 
@@ -229,3 +230,18 @@ def write_gif(path: str, frames: list[np.ndarray], fps: float = 10.0) -> None:
     with open(tmp, "wb") as f:
         f.write(bytes(data))
     os.replace(tmp, path)
+
+
+def read_image(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 RGB of a PNG or JPEG file, told apart by its signature:
+    grey repeated in three channels, alpha dropped."""
+    with open(path, "rb") as f:
+        head = f.read(len(PNG_SIGNATURE))
+    if head.startswith(PNG_SIGNATURE):
+        img = read_png(path)
+        return np.repeat(img[..., None], 3, -1) if img.ndim == 2 else img[..., :3]
+    from .jpeg import JPEG_SIGNATURE, read_jpeg
+
+    if head.startswith(JPEG_SIGNATURE):
+        return read_jpeg(path)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file")

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card;
+with them the paths around the kernels on the card's machine (steps, fits,
+the host builds, the JPEG decoder, ViTPose on the card against the CPU).
 
 Marked `cuda`: they skip where there is no NVIDIA GPU (the kernels are CUDA
 C++ with no CPU mode). This file imports nothing of JAX, so on a machine with
@@ -280,3 +282,51 @@ def test_tiny_fit_on_card_crosses_epoch_0(cuda_device, tmp_path):
         assert os.path.exists(os.path.join(tmp_path, rel)), rel
     with open(os.path.join(tmp_path, "metrics.jsonl")) as f:
         assert '"val_psnr"' in f.read()
+
+
+@pytest.mark.cuda
+def test_jpeg_fixtures_decode_as_opencv_on_the_card_machine(cuda_device):
+    """The host decoder, built on the card's machine (nvcc as the compiler
+    driver), gives the pixels that OpenCV decoded from each committed fixture."""
+    import glob
+
+    from multiply_tpu_torch.utils.io import read_png
+    from multiply_tpu_torch.utils.jpeg import read_jpeg
+
+    files = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "data", "torch_jpeg", "*.jpg")))
+    assert len(files) == 10
+    for path in files:
+        assert np.array_equal(read_jpeg(path), read_png(path[:-4] + ".png")), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("simple", [True, False], ids=["simple", "classic"])
+def test_vitpose_on_card_matches_cpu(cuda_device, tmp_path, simple):
+    """A small ViTPose (hidden 64, 2 layers) with seeded weights: the card's
+    heatmaps within 1e-5 of the CPU's (f32, TF32 off), and the detector's
+    keypoints on a frame within 1e-2 px."""
+    from multiply_tpu_torch.models.vitpose import VitPose, VitPoseConfig
+    from multiply_tpu_torch.preprocessing.vitpose import VitPoseDetector
+
+    cfg = {"backbone_config": {"hidden_size": 64, "num_hidden_layers": 2, "num_attention_heads": 4,
+                               "image_size": [64, 48], "out_indices": [2]},
+           "use_simple_decoder": simple, "id2label": {str(i): str(i) for i in range(17)}}
+    torch.manual_seed(0)
+    cpu = VitPoseDetector(config=cfg, device="cpu")
+    with torch.no_grad():
+        for p in cpu.model.parameters():
+            p.add_(torch.randn_like(p) * 0.1)
+    card = VitPoseDetector(config=cfg, device=cuda_device)
+    card.model.load_state_dict(cpu.model.state_dict())
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    x = torch.randn((3, 3, 64, 48), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want, got = cpu.model(x), card.model(x.to(cuda_device)).cpu()
+    assert isinstance(card.model, VitPose) and VitPoseConfig.from_dict(cfg).out_index == 2
+    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
+    rng = np.random.default_rng(2)
+    image = rng.integers(0, 256, (90, 120, 3), dtype=np.uint8)
+    boxes = np.array([[10, 5, 40, 60], [60, 20, 50, 70]], np.float32)
+    for a, b in zip(card(image, boxes), cpu(image, boxes)):
+        np.testing.assert_allclose(a[:, :2], b[:, :2], atol=1e-2, rtol=0)
+        np.testing.assert_allclose(a[:, 2], b[:, 2], atol=1e-5 * np.abs(b[:, 2]).max(), rtol=0)

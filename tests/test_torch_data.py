@@ -29,7 +29,7 @@ from multiply_tpu_torch.utils import cameras as tcam
 from multiply_tpu_torch.utils.io import read_png, write_png
 
 PKG = os.path.join(os.path.dirname(__file__), "..", "multiply_tpu_torch")
-FORBIDDEN = {"jax", "jaxlib", "flax", "multiply_tpu", "cv2", "imageio", "PIL", "orbax", "optax", "transformers"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "multiply_tpu", "cv2", "imageio", "PIL", "orbax", "optax", "transformers", "safetensors"}
 
 
 def test_port_imports_none_of_the_forbidden_packages():

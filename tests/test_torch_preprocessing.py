@@ -334,23 +334,43 @@ def test_trace_loading_matches_jax(tmp_path):
 
 
 def test_jpeg_frames_and_the_vitpose_model_are_refused(tmp_path):
-    inputs, servers, *_ = make_trace_inputs(F=2, P=2)
+    """(The name is kept from when both were refused.) JPEG frames, alone and
+    sorted among PNG ones, give the images that JAX's `cv2.imread` gives; a
+    ViTPose checkpoint gives JAX's keypoints, and the entry runs with
+    `--vitpose` on JPEG frames on the CPU."""
+    from multiply_tpu_torch.preprocessing.__main__ import main
+    from test_torch_vitpose import _checkpoint, _hf_model
+
+    inputs, servers, *_ = make_trace_inputs(F=3, P=2)
     npz = str(tmp_path / "trace.npz")
     _raw_trace_npz(npz, inputs, servers)
-    frames = tmp_path / "frames"
+    rng = np.random.default_rng(12)
+    images = [np.clip(img.astype(np.float32) + rng.normal(0, 30, img.shape), 0, 255).astype(np.uint8)
+              for img in inputs.images]
+    frames, mixed = tmp_path / "frames", tmp_path / "mixed"
     frames.mkdir()
-    for f, img in enumerate(inputs.images):
-        cv2.imwrite(str(frames / f"{f:04d}.jpg"), img)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrace.trace_inputs_from_files(npz, str(frames))
-    png = _frames_dir(tmp_path / "png", inputs.images)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrace.trace_inputs_from_files(npz, png, vitpose_checkpoint=str(tmp_path))
-    from multiply_tpu_torch.preprocessing.__main__ import main
+    mixed.mkdir()
+    for f, img in enumerate(images):
+        cv2.imwrite(str(frames / f"{f:04d}.jpg"), img[:, :, ::-1], [cv2.IMWRITE_JPEG_QUALITY, 90])
+        if f == 1:
+            write_png(str(mixed / f"{f:04d}.png"), img)
+        else:
+            cv2.imwrite(str(mixed / f"{f:04d}.jpg"), img[:, :, ::-1])
+    ckpt = _checkpoint(tmp_path / "vitpose", _hf_model(8))
+    for d, kw in ((frames, {}), (mixed, {"skip": 2}), (frames, {"vitpose_checkpoint": ckpt})):
+        got = ttrace.trace_inputs_from_files(npz, str(d), device="cpu", **kw)
+        want = jtrace.trace_inputs_from_files(npz, str(d), **kw)
+        assert len(got.images) == len(want.images) and all(np.array_equal(x, y) for x, y in zip(got.images, want.images))
+        np.testing.assert_allclose(got.keypoints_2d, want.keypoints_2d, atol=1e-3, rtol=0)
+    assert not np.array_equal(got.keypoints_2d, ttrace.trace_inputs_from_files(npz, str(frames)).keypoints_2d)
 
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        main(["--trace", npz, "--frames", png, "--out", str(tmp_path / "out"), "--vitpose", str(tmp_path),
-              "--device", "cpu"])
+    out = str(tmp_path / "out")
+    seconds = main(["--trace", npz, "--frames", str(frames), "--out", out, "--vitpose", ckpt, "--refine_iters", "2",
+                    "--scale_factor", "1", "--device", "cpu"])
+    assert set(seconds) == {"pnp", "refine", "finalize"}
+    missing = [f for f in (*tpipe.FILES, *(f"image/{i:04d}.png" for i in range(3))) if not os.path.exists(
+        os.path.join(out, f))]
+    assert not missing, missing
 
 
 # ---------------------------------------------------------------------------
@@ -544,8 +564,6 @@ def test_detect_and_track_matches_jax():
     assert np.array_equal(got, jvitpose.detect_and_track(StubDetector(), images[1], boxes, far)) and not got[1].any()
     a = ttrace.vitpose_keypoints(images, inputs.keypoints_2d, detector=StubDetector())
     assert np.array_equal(a, jtrace.vitpose_keypoints(images, inputs.keypoints_2d, detector=StubDetector()))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvitpose.VitPoseDetector(checkpoint="vitpose-base")
 
 
 def test_video_stages_run_the_same_commands_as_jax(tmp_path, monkeypatch):
