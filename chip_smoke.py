@@ -97,9 +97,24 @@ Phases, each fatal on failure:
      every frame's boxes reach the detector, every keypoint handed to the
      refinement is finite and every file is written;
  13. `cli/train.py --profile 3` on path T's configuration and its table of
-     device time by category.
-Each of the paths 5-7 and 9-12 zeroes the kernels' launch counters just
-before it and reads them just after. Prints the `{"kernels": [...]}` line,
+     device time by category;
+ 14. path D, several devices (`run_path_d`; two processes time-slicing the one
+     card, so its times show the port's overhead, not a scaling figure): D1,
+     the sharded step (`parallel.sharded_train_step`) on 2 gloo ranks both on
+     cuda:0 at the parity preset's widths, 512 rays (256 a rank), 5 steps from
+     the same parameters and whole-batch noise as a group-less run in this
+     process: each loss and the parameters within D_RTOL, the ranks' parameters
+     bitwise equal (all-gathered), no skipped update, both kernels held to
+     their plain versions on rank 0 at the per-rank shapes and timed there;
+     D2, a 1-rank NCCL group: bitwise the group-less run, NCCL's kernel in a
+     profiled step; D3, the training entry's ranks (`cli/train.py`
+     `train_on_ranks`, 2 gloo ranks on cuda:0) on path T's configuration for
+     epochs 0-1: rank 0's files, finite losses, a checkpoint that restores;
+     then the entry's refusal of `--devices 2` on one card. Prints each rank's
+     median step beside the group-less one, the collectives a step with their
+     bytes and CUDA-event times, each rank's peak memory and D3's epochs.
+Each of the paths 5-7, 9-12 and 14 (D1, rank 0) zeroes the kernels' launch
+counters just before it and reads them just after. Prints the `{"kernels": [...]}` line,
 then the nvidia-smi line, then `{"ok": true, "device": {...}}` as the last
 line.
 """
@@ -167,6 +182,14 @@ def log(*args):
     print(*args, flush=True)
 
 
+def smi_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def cuda_time_ms(fn, reps=30, warmup=5):
     """Median of per-call CUDA-event times after warm-up."""
     import torch
@@ -200,6 +223,55 @@ def queued_ms(fn, launches=50):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / launches
+
+
+def time_kernels(q, r, grid_args, group):
+    """Both kernels timed on the inputs a path handed them (`nn1` on (q, r),
+    `grid_trilinear` on `grid_args` with `group`): call, queued, device and
+    host time, bound, plain version and library call. Returns two dicts."""
+    import torch
+
+    from multiply_tpu_torch.ops import grid_cuda, knn_cuda
+
+    with torch.no_grad():
+        def run_a():
+            return knn_cuda.nn1(q, r)
+
+        def run_b():
+            return grid_cuda.grid_trilinear(*grid_args, group=group)
+
+        n_q, V = q.shape[-2], r.shape[-2]
+        a = {"ms": cuda_time_ms(run_a), "plain_ms": cuda_time_ms(lambda: knn_cuda.nn1_plain(q, r), reps=10),
+             "library_ms": cuda_time_ms(lambda: torch.cdist(q, r, compute_mode="donot_use_mm_for_euclid_dist").min(-1),
+                                        reps=10)}
+        a["device_ms"], _ = device_time_ms(run_a, "nn1_kernel")
+        a["queued_ms"] = queued_ms(run_a)
+        a["host_us"], _ = host_time_us(run_a)
+        batch = q.shape[0] if q.dim() == 3 else 1
+        a_ops = NN1_OPS_PER_PAIR * batch * n_q * V
+        a_bytes = batch * (n_q * 12 + V * 12 + n_q * 12)
+        a["bound_ms"] = max(a_ops / PEAK_FP32_FLOPS, a_bytes / PEAK_BYTES) * 1e3
+        a["bound_by"] = "operations" if a_ops / PEAK_FP32_FLOPS > a_bytes / PEAK_BYTES else "bytes"
+        a["shape"] = f"query {tuple(q.shape)} V={V}"
+        grid, pts = grid_args[0], grid_args[1]
+        res = grid.shape[-1]
+        b = {"ms": cuda_time_ms(run_b),
+             "plain_ms": cuda_time_ms(lambda: grid_cuda.grid_trilinear_plain(*grid_args, group=group), reps=10)}
+        b["device_ms"], _ = device_time_ms(run_b, "grid_trilinear_kernel")
+        b["queued_ms"] = queued_ms(run_b)
+        b["host_us"], _ = host_time_us(run_b)
+        n_pts, n_out = pts.shape[:-1].numel(), pts.shape[:-1].numel() // group
+        b_bytes = n_pts * 12 + grid.numel() * 4 + grid.shape[0] * 24 + n_out * 4
+        b_ops = (GRID_OPS_PER_POINT + (1 if group > 1 else 0)) * n_pts
+        b["bound_ms"] = max(b_ops / PEAK_FP32_FLOPS, b_bytes / PEAK_BYTES) * 1e3
+        b["bound_by"] = "operations" if b_ops / PEAK_FP32_FLOPS > b_bytes / PEAK_BYTES else "bytes"
+        Pb = grid.shape[0]
+        unit = (pts - grid_args[2][:, None, :]) / grid_args[3][:, None, :] / (res - 1) * 2 - 1
+        b["library_ms"] = cuda_time_ms(lambda: torch.nn.functional.grid_sample(
+            grid[:, None], unit.flip(-1)[:, None, None], mode="bilinear", padding_mode="border", align_corners=True,
+        ).reshape(Pb, -1, group).min(-1))
+        b["shape"] = f"points {tuple(pts.shape)} res {res} group={group}"
+    return a, b
 
 
 def check_nn1(q, r, name):
@@ -1027,6 +1099,349 @@ def run_profile():
     return summary
 
 
+# ---- path D: several devices (rays split over ranks), 2 ranks time-slicing the one card ----
+D_STEPS = 5  # one first step, four timed
+D_RTOL = 1e-5  # each step's loss, the first step's gradients and the resolved parameters, against the group-less run
+D_RESOLVED = 1e-3  # an entry whose gradients agree this closely (relative) in every step is held to D_RTOL
+D_SEED = SEED + 50
+D_TIMEOUT_S = 300.0  # the longest a rank waits in one collective (D3's rank 1 waits out rank 0's stages)
+
+
+def d_program(dev):
+    """The parity preset's program of phases 3-5 (taichi01 widths, the
+    synthetic 2-person scene, grids at res 64, weights from SEED), built alike
+    on every rank: (scene, stepper, ts)."""
+    import torch
+
+    from multiply_tpu_torch.config import load_config
+    from multiply_tpu_torch.data.synthetic import make_scene
+    from multiply_tpu_torch.engine.train import TrainStep
+    from multiply_tpu_torch.models.loss import LossConfig
+    from multiply_tpu_torch.models.renderer import MultiplyRenderer
+
+    conf = load_config(os.path.join(ROOT, "confs", "model", "taichi01_model.yaml"))
+    scene = make_scene(num_frames=4, num_persons=2, height=32, width=40, seed=SEED, device=dev)
+    renderer = MultiplyRenderer(conf, num_persons=2, num_frames=4, generator=torch.Generator(dev).manual_seed(SEED),
+                                device=dev)
+    state = renderer.build_person_state(scene.servers, grid_res=64)
+    stepper = TrainStep(renderer, state, LossConfig(sam_start_epoch=0), learning_rate=conf.learning_rate)
+    return scene, stepper, stepper.init_state(body_tables(scene, dev))
+
+
+def d_inputs(scene, stepper, dev):
+    """D_STEPS whole batches of RAYS rays over the 4 frames, each with its
+    whole-batch noise: [(batch, noise)]."""
+    import numpy as np
+    import torch
+
+    rng, gen = np.random.default_rng(D_SEED), torch.Generator(dev).manual_seed(D_SEED)
+    batches = [make_batch(scene, i % 4, rng, dev) for i in range(D_STEPS)]
+    return [(b, stepper.draw_noise(b, None, gen)) for b in batches]
+
+
+def flat_params(ts):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in ts.params().values()])
+
+
+def record_grads(stepper):
+    """Each step's gradients as one flat vector (parameter order), taken where
+    the step hands them to its update; returns the list it fills."""
+    import torch
+
+    seen, update = [], stepper.update
+
+    def recorded(ts, mode, loss, logs, grads):
+        seen.append(torch.cat([g.reshape(-1) for g in grads.values()]).clone())
+        return update(ts, mode, loss, logs, grads)
+
+    stepper.update = recorded
+    return seen
+
+
+def shares_in_one_process(stepper, ts, batch, noise, world=2):
+    """The gradient that `world` ranks sum, computed share by share in this
+    process (flat, parameter order): every share's counts from a forward
+    first, then each share's loss over the whole batch's counts and its
+    gradient, added in rank order. It isolates the ranks' arithmetic from the
+    processes and collectives."""
+    import torch
+
+    from multiply_tpu_torch.models.loss import RayShare
+    from multiply_tpu_torch.parallel import shard_batch, shard_noise
+
+    shares = [(shard_batch(batch, r, world), shard_noise(noise, r, world)) for r in range(world)]
+    counts = []
+    with torch.no_grad():
+        for b, n in shares:
+            stepper.forward_loss(ts, b, n, share=RayShare(world, lambda t: counts.append(t.clone()) or t))
+    total = torch.stack(counts).sum(0)
+    flat = None
+    for b, n in shares:
+        _, _, grads = stepper.loss_and_grads(ts, b, n, share=RayShare(world, lambda t: t.copy_(total)))
+        g = torch.cat([v.reshape(-1) for v in grads.values()])
+        flat = g if flat is None else flat + g
+    return flat
+
+
+def leaf_gap(a, b, sizes):
+    """The largest |a - b| of a leaf over that leaf's largest |b|, worst leaf."""
+    return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+               for x, y in zip(a.split(sizes), b.split(sizes)))
+
+
+def time_collectives(group):
+    """Record each tensor collective of `group` as (name, bytes, ms by CUDA
+    events around it); returns the list it fills."""
+    import torch
+
+    done, run = [], group._run
+
+    def timed(op, t, *args):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = run(op, t, *args)
+        b.record()
+        b.synchronize()
+        done.append((op.__name__, t.numel() * t.element_size(), a.elapsed_time(b)))
+        return out
+
+    group._run = timed
+    return done
+
+
+def d_rank(group, profile=False):
+    """One rank of path D1 (2 gloo ranks on cuda:0) or D2 (1 NCCL rank): the
+    program built from the seeds, rank 0's state and D_STEPS inputs sent to
+    the others (`replicate`, `broadcast_tree`), then D_STEPS sharded steps.
+    Rank 0 returns its losses, parameters and collectives, every rank's median
+    step time and peak memory, whether the ranks' parameters are bitwise
+    equal, and with `profile` the backend and the NCCL operations (host) and
+    kernels (card) of one more profiled step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from multiply_tpu_torch.parallel import replicate, sharded_train_step
+    from multiply_tpu_torch.parallel.sharding import broadcast_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = str(group.device)
+    scene, stepper, ts = d_program(dev)
+    inputs = broadcast_tree(d_inputs(scene, stepper, dev) if group.rank == 0 else None, group)
+    replicate([ts.params(), ts.opt_joint, ts.opt_pose, stepper.state], group)
+    out = {"init": flat_params(ts).clone(), "losses": [], "skipped": [], "step_ms": [], "grads": record_grads(stepper)}
+    step = sharded_train_step(stepper, group)
+    collectives = time_collectives(group)
+    torch.cuda.reset_peak_memory_stats()
+    for batch, noise in inputs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, logs = step(ts, batch, noise=noise)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(float(logs["loss"]))
+        out["skipped"].append(float(logs["update_skipped"]))
+    out["collectives"] = list(collectives)
+    del group._run  # the class's own again
+    out["final"] = flat_params(ts)
+    every = group.all_gather(out["final"][None])
+    out["ranks_equal"] = all(torch.equal(every[0], every[r]) for r in range(group.world))
+    mine = torch.tensor([[median(out["step_ms"][1:]), torch.cuda.max_memory_allocated() / 2**30]], device=dev)
+    out["per_rank"] = group.all_gather(mine).tolist()
+    out["grad_bytes"] = out["final"].numel() * out["final"].element_size()
+    if profile:
+        batch, noise = inputs[-1]
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(ts, batch, noise=noise)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        nccl = [e for e in events if "nccl" in e.key.lower()]
+        out["nccl_kernels"] = sorted({e.key for e in nccl if e.device_type == DeviceType.CUDA})
+        out["nccl_ops"] = sorted({e.key for e in nccl if e.device_type == DeviceType.CPU})
+        out["backend"] = torch.distributed.get_backend()
+    return out
+
+
+def run_path_d():
+    """Path D: the sharded step and the training entry over ranks, on the one
+    card. D1: 2 gloo ranks on cuda:0 against the group-less step in this run,
+    both kernels held on rank 0 at the per-rank shapes; D2: a 1-rank NCCL
+    group, bitwise the group-less step; D3: `cli/train.py`'s ranks (2 on
+    cuda:0) on path T's configuration for epochs 0-1, then the real entry's
+    refusal of `--devices 2` on one card. Two processes time-slice one card:
+    the times show the port's overhead, not a scaling result."""
+    import torch
+
+    from multiply_tpu_torch.cli import train as cli_train
+    from multiply_tpu_torch.parallel import launch
+
+    out_dir = os.path.join(ROOT, "outputs", "chip_smoke_path_d")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t_path = time.perf_counter()
+
+    # ---- the group-less run, and its first gradient again and as two shares in this process ----
+    scene, stepper, ts = d_program("cuda")
+    init = flat_params(ts).clone()
+    inputs = d_inputs(scene, stepper, "cuda")
+    again = torch.cat([g.reshape(-1) for g in stepper.loss_and_grads(ts, *inputs[0])[2].values()])
+    halves = shares_in_one_process(stepper, ts, *inputs[0])
+    ref = {"losses": [], "step_ms": [], "grads": record_grads(stepper)}
+    lr = stepper.lr
+    for batch, noise in inputs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, logs = stepper.step(ts, batch, noise=noise)
+        torch.cuda.synchronize()
+        ref["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        ref["losses"].append(float(logs["loss"]))
+    names = {k: p.numel() for k, p in ts.params().items()}
+    final = flat_params(ts)
+    del scene, stepper, ts, inputs
+    torch.cuda.empty_cache()
+
+    # ---- D1: 2 gloo ranks on cuda:0 ----
+    kernel_inputs = {}
+    held, failures, unhold = hold_kernels_on_path("D", kernel_inputs)
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        d1 = launch(d_rank, (), ["cuda:0", "cuda:0"], "gloo", os.path.join(out_dir, "rendezvous_d1"), D_TIMEOUT_S)
+    finally:
+        unhold()
+    d1_s = time.perf_counter() - t0
+    launches = read_counts()
+    problems = []  # path D's failed checks, raised after D3 so that one run shows every phase
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(d1["losses"], ref["losses"]))
+    # the first step starts from the same parameters. Against the same two shares computed in this process it
+    # shows the ranks' own arithmetic; against the whole batch, the card's rounding at other shapes, which the
+    # sampler's discrete choices amplify (the CPU tests hold the 2-rank step to the 1-process step to 1e-6)
+    sizes = list(names.values())
+    g_rank = leaf_gap(d1["grads"][0], halves, sizes)
+    g_whole = leaf_gap(d1["grads"][0], ref["grads"][0], sizes)
+    g_halves, g_again = leaf_gap(halves, ref["grads"][0], sizes), leaf_gap(again, ref["grads"][0], sizes)
+    # Adam normalises each entry's step, so an entry whose gradient is no larger than the rounding moves by up to
+    # 2 lr a step either way: entries whose gradients agree within D_RESOLVED in every step are held to D_RTOL
+    resolved = torch.stack([(a - b).abs() <= D_RESOLVED * b.abs()
+                            for a, b in zip(d1["grads"], ref["grads"])]).all(0)
+    gap = (d1["final"] - final).abs()
+    top = float(final.abs().max())
+    gap_res, gap_rest = float(gap[resolved].max()), float(torch.where(resolved, 0.0, gap).max())
+    n_rest = int((~resolved).sum())
+    per_step = [c for c in d1["collectives"] if c[0] == "all_reduce"]
+    grads = [c for c in per_step if c[1] == d1["grad_bytes"]]
+    small = [c for c in per_step if c[1] != d1["grad_bytes"]]
+    log(f"path D1 (2 gloo ranks on cuda:0, {RAYS} rays a step, {RAYS // 2} a rank; {smi_line()}): losses "
+        f"{[round(x, 6) for x in d1['losses']]} against {[round(x, 6) for x in ref['losses']]} (worst relative "
+        f"{loss_gap:.3g}); first step's gradients, worst leaf's gap over its largest: rank 0 against the two shares "
+        f"in one process {g_rank:.3g}, against the whole batch {g_whole:.3g} (the two shares in one process against "
+        f"the whole batch {g_halves:.3g}; the whole batch against itself again {g_again:.3g}); parameters after "
+        f"{D_STEPS} steps: max |gap| {gap_res:.3g} of largest {top:.4g} on the {resolved.numel() - n_rest} entries "
+        f"whose gradients agree within {D_RESOLVED} in every step, {gap_rest:.3g} (lr {lr}) on the other {n_rest}; "
+        f"ranks bitwise equal: {d1['ranks_equal']}; skipped {d1['skipped']}; rank 0 launches {launches}")
+    log(f"path D1 times (two processes time-slice one card: the port's overhead, not a scaling figure): median step "
+        f"ms by rank {[round(r[0], 2) for r in d1['per_rank']]} against {median(ref['step_ms'][1:]):.2f} group-less; "
+        f"peak memory GiB by rank {[round(r[1], 3) for r in d1['per_rank']]}; {len(per_step) / D_STEPS:g} all-reduces "
+        f"a step: the gradient buffer {d1['grad_bytes']} bytes ({sum(sizes)} parameters) in "
+        f"{median([c[2] for c in grads]):.3f} ms median, the counts and the logged terms "
+        f"{sorted({c[1] for c in small})} bytes in {median([c[2] for c in small]):.3f} ms median (CUDA events, gloo "
+        f"through the host); D1 {d1_s:.1f} s with rank 1's start")
+    checks = [
+        (not failures, f"path D kernel holds: {failures}"),
+        (torch.equal(d1["init"], init), "rank 0 did not start from the group-less run's parameters"),
+        (loss_gap <= D_RTOL, f"D1 losses {d1['losses']} against {ref['losses']}"),
+        (g_rank <= D_RTOL, f"D1's first gradient parts from the same shares in one process by {g_rank:.3g}"),
+        (g_whole <= 1e-2, f"D1's first gradient parts from the whole batch's by {g_whole:.3g}"),
+        (gap_res <= D_RTOL * top, f"D1 parameters part by {gap_res} where resolved (largest {top})"),
+        (gap_rest <= 2 * lr * D_STEPS, f"D1 parameters part by {gap_rest} where unresolved"),
+        (d1["ranks_equal"], "D1: the ranks' parameters differ"),
+        (not any(d1["skipped"]), f"D1 skipped an update: {d1['skipped']}"),
+        (launches == {"nn1": 8 * D_STEPS, "grid_trilinear": D_STEPS}, f"D1 rank 0 launches {launches}"),
+    ]
+    problems += [msg for ok, msg in checks if not ok]
+
+    # the kernels at the per-rank shapes that rank 0 handed them
+    n_rank = RAYS // 2 * 128  # a sampler round: rays x N_samples_eval points a person
+    key_a = next(k for k in kernel_inputs if k[0] == "nn1" and k[1][-2] == n_rank)
+    key_b = next(k for k in kernel_inputs if k[0] == "grid_trilinear")
+    a, b = time_kernels(*kernel_inputs[key_a], kernel_inputs[key_b][:4], kernel_inputs[key_b][4])
+    held_err = {k: max((e for key, e in held.items() if key[0] == k), default=None)
+                for k in ("nn1", "grid_trilinear")}
+    log(f"path D kernels at rank 0's shapes: nn1 {a['shape']}: call {a['ms']:.4f} ms, queued {a['queued_ms']:.4f} ms, "
+        f"bound {a['bound_ms']:.5f} ms ({a['bound_by']}), plain {a['plain_ms']:.4f} ms, cdist+min "
+        f"{a['library_ms']:.4f} ms; grid_trilinear {b['shape']}: call {b['ms']:.4f} ms, queued "
+        f"{b['queued_ms']:.4f} ms, "
+        f"bound {b['bound_ms']:.6f} ms ({b['bound_by']}), plain {b['plain_ms']:.4f} ms, grid_sample+min "
+        f"{b['library_ms']:.4f} ms; held by shape "
+        f"{({' '.join(map(str, k)): float(f'{e:.3g}') for k, e in held.items()})}")
+    del kernel_inputs
+    torch.cuda.empty_cache()
+
+    # ---- D2: a 1-rank NCCL group ----
+    d2 = launch(d_rank, (True,), ["cuda:0"], "nccl", os.path.join(out_dir, "rendezvous_d2"), D_TIMEOUT_S)
+    d2_gap = float((d2["final"] - final).abs().max())
+    problems += [msg for ok, msg in [
+        (d2["losses"] == ref["losses"], f"D2 losses {d2['losses']} against {ref['losses']}"),
+        (d2_gap == 0.0, f"D2: parameters part from the group-less run's by {d2_gap}"),
+        (d2["backend"] == "nccl" and any("reduce" in k.lower() for k in d2["nccl_ops"]),
+         f"D2: no NCCL all-reduce in the profiled step ({d2['backend']}: {d2['nccl_ops']})"),
+    ] if not ok]
+    # NCCL launches no kernel for an in-place all-reduce over one rank: the host's NCCL operation shows the path
+    log(f"path D2 (1 NCCL rank): losses {d2['losses']}, parameters' max gap {d2_gap} to the group-less run's; NCCL "
+        f"operations (host) {d2['nccl_ops']}, NCCL kernels (card) {d2['nccl_kernels']}; median step "
+        f"{d2['per_rank'][0][0]:.2f} ms; all-reduce of the gradient buffer "
+        f"{median([c[2] for c in d2['collectives'] if c[1] == d2['grad_bytes']]):.3f} ms median ({smi_line()})")
+
+    # ---- D3: the training entry's ranks on path T's configuration ----
+    run_dir = os.path.join(out_dir, "train")
+    args = cli_train.parse_args(["--conf", os.path.join(ROOT, TRAIN_CONF), "--run_dir", run_dir, "--device", "cuda",
+                                 "--max_epochs", "2", *(f"--set={s}" for s in RUN_A_SETS),
+                                 f"--set=dist_timeout_s={D_TIMEOUT_S}"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = cli_train.train_on_ranks(args, ["cuda:0", "cuda:0"], "gloo")
+    d3_s = time.perf_counter() - t0
+    peak0 = torch.cuda.max_memory_allocated() / 2**30
+    records = read_metrics(run_dir)
+    epochs = [r for r in records if "epoch_seconds" in r]
+    assert [r["epoch"] for r in epochs] == [0, 1], f"D3 epochs {[r['epoch'] for r in epochs]}"
+    assert all(math.isfinite(r[k]) for r in epochs for k in r if k.endswith("_loss") or k == "loss"), epochs
+    assert sorted(os.listdir(os.path.join(run_dir, "checkpoints"))) == ["epoch_00000", "last"]
+    assert os.path.exists(os.path.join(run_dir, "val", "epoch_00000.png"))
+    assert not os.path.exists(os.path.join(run_dir, cli_train.RENDEZVOUS_FILE))
+    fresh, _, _ = cli_train.build_trainer(cli_train.parse_args(
+        ["--conf", os.path.join(ROOT, TRAIN_CONF), "--run_dir", run_dir, "--device", "cuda",
+         *(f"--set={s}" for s in RUN_A_SETS)]))
+    fresh.load_checkpoint(os.path.join(run_dir, "checkpoints", "last"))
+    assert fresh.epoch == 2 and all(torch.equal(p, trainer.ts.params()[k]) for k, p in fresh.ts.params().items())
+    stages = {k: r[k] for r in records for k in r if k.endswith("_seconds") and k != "epoch_seconds"}
+    log(f"path D3 (the entry's ranks, 2 on cuda:0, path T's configuration, epochs 0-1; {smi_line()}): epoch seconds "
+        f"{[round(r['epoch_seconds'], 3) for r in epochs]}, stages on rank 0 {stages}, losses "
+        f"{[round(r['loss'], 5) for r in epochs]}, rank 0's peak memory {peak0:.3f} GiB; checkpoint restored; "
+        f"whole D3 {d3_s:.1f} s")
+    del trainer, fresh
+    torch.cuda.empty_cache()
+
+    try:
+        cli_train.main(["--conf", os.path.join(ROOT, TRAIN_CONF), "--run_dir", os.path.join(out_dir, "refused"),
+                        "--devices", "2"])
+        raise AssertionError("--devices 2 on one card was not refused")
+    except SystemExit as e:
+        refusal = str(e)
+    assert f"2 CUDA devices asked for, {torch.cuda.device_count()} visible" in refusal, refusal
+    assert not problems, f"path D: {problems}"
+    out = {"d1": d1, "d2": d2, "ref": ref, "launches": launches, "nn1": a, "grid": b, "held": held,
+           "held_err": held_err, "d3_s": d3_s, "epochs": epochs, "refusal": refusal,
+           "seconds": time.perf_counter() - t_path}
+    log(f"path D: the entry refuses --devices 2 here: {refusal!r}; whole path {out['seconds']:.1f} s")
+    for d in (d1, d2):
+        del d["init"], d["final"], d["grads"]
+    return out
+
+
 def write_tracker_output(root, smpl_dir):
     """Scaffolding for path P: what TRACE and a keypoint detector would hand
     the preprocessing, made with the port and numpy from the 6890-vertex body
@@ -1150,7 +1565,6 @@ def run_path_p():
     from multiply_tpu_torch.engine.instance_masks import project_depth
     from multiply_tpu_torch.engine.visualize import export_visualization
     from multiply_tpu_torch.native import rasterize_depth
-    from multiply_tpu_torch.ops import grid_cuda, knn_cuda
     from multiply_tpu_torch.preprocessing import pipeline, refine
     from multiply_tpu_torch.preprocessing.__main__ import main as preprocess_main
     from multiply_tpu_torch.utils.io import read_png
@@ -1353,45 +1767,7 @@ def run_path_p():
     key_a = next(k for k in kernel_inputs if k[0] == "nn1" and k[2] == PREP_VERTS and k[1][-2] == n_step)
     q, r = kernel_inputs[key_a]
     key_b = next(k for k in kernel_inputs if k[0] == "grid_trilinear")
-    grid_args, group = kernel_inputs[key_b][:4], kernel_inputs[key_b][4]
-    with torch.no_grad():
-        def run_a():
-            return knn_cuda.nn1(q, r)
-
-        def run_b():
-            return grid_cuda.grid_trilinear(*grid_args, group=group)
-
-        n_q, V = q.shape[-2], r.shape[-2]
-        a = {"ms": cuda_time_ms(run_a), "plain_ms": cuda_time_ms(lambda: knn_cuda.nn1_plain(q, r), reps=10),
-             "library_ms": cuda_time_ms(lambda: torch.cdist(q, r, compute_mode="donot_use_mm_for_euclid_dist").min(-1),
-                                        reps=10)}
-        a["device_ms"], _ = device_time_ms(run_a, "nn1_kernel")
-        a["queued_ms"] = queued_ms(run_a)
-        a["host_us"], _ = host_time_us(run_a)
-        batch = q.shape[0] if q.dim() == 3 else 1
-        a_ops = NN1_OPS_PER_PAIR * batch * n_q * V
-        a_bytes = batch * (n_q * 12 + V * 12 + n_q * 12)
-        a["bound_ms"] = max(a_ops / PEAK_FP32_FLOPS, a_bytes / PEAK_BYTES) * 1e3
-        a["bound_by"] = "operations" if a_ops / PEAK_FP32_FLOPS > a_bytes / PEAK_BYTES else "bytes"
-        a["shape"] = f"query {tuple(q.shape)} V={V}"
-        grid, pts = grid_args[0], grid_args[1]
-        res = grid.shape[-1]
-        b = {"ms": cuda_time_ms(run_b),
-             "plain_ms": cuda_time_ms(lambda: grid_cuda.grid_trilinear_plain(*grid_args, group=group), reps=10)}
-        b["device_ms"], _ = device_time_ms(run_b, "grid_trilinear_kernel")
-        b["queued_ms"] = queued_ms(run_b)
-        b["host_us"], _ = host_time_us(run_b)
-        n_pts, n_out = pts.shape[:-1].numel(), pts.shape[:-1].numel() // group
-        b_bytes = n_pts * 12 + grid.numel() * 4 + grid.shape[0] * 24 + n_out * 4
-        b_ops = (GRID_OPS_PER_POINT + (1 if group > 1 else 0)) * n_pts
-        b["bound_ms"] = max(b_ops / PEAK_FP32_FLOPS, b_bytes / PEAK_BYTES) * 1e3
-        b["bound_by"] = "operations" if b_ops / PEAK_FP32_FLOPS > b_bytes / PEAK_BYTES else "bytes"
-        Pb = grid.shape[0]
-        unit = (pts - grid_args[2][:, None, :]) / grid_args[3][:, None, :] / (res - 1) * 2 - 1
-        b["library_ms"] = cuda_time_ms(lambda: torch.nn.functional.grid_sample(
-            grid[:, None], unit.flip(-1)[:, None, None], mode="bilinear", padding_mode="border", align_corners=True,
-        ).reshape(Pb, -1, group).min(-1))
-        b["shape"] = f"points {tuple(pts.shape)} res {res} group={group}"
+    a, b = time_kernels(q, r, kernel_inputs[key_b][:4], kernel_inputs[key_b][4])
     held_err = {k: max((e for key, e in held_shapes.items() if key[0] == k), default=None)
                 for k in ("nn1", "grid_trilinear")}
     out.update(nn1=a, grid=b, held=held_shapes, held_err=held_err, path_s=time.perf_counter() - t_path,
@@ -1818,10 +2194,7 @@ def main() -> int:
     from multiply_tpu_torch.ops import grid_cuda, knn_cuda
     from multiply_tpu_torch.utils.cameras import pixel_grid
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = smi_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"device: {torch.cuda.get_device_name(0)} | torch {torch.__version__} cuda {torch.version.cuda}")
@@ -2126,16 +2499,21 @@ def main() -> int:
     for r in prof["rows"]:
         log(f"  {r['category']:<24} {r['total_ms']:10.3f} ms  x{r['count']:<6d} {r['pct']:5.1f}%")
 
+    # ---------------- 14. path D: several devices ----------------
+    torch.cuda.empty_cache()
+    path_d = run_path_d()
+
     launches_by_path = {"parity": launches, "fast": launches_f, "pose": launches_p,
                         "trainer": path_t["launches_a"], "trainer_pose": path_t["launches_b"],
                         "sam": path_s["launches"], "preprocessed": path_p["launches"],
-                        "vitpose_jpeg": path_v["launches"]}
+                        "vitpose_jpeg": path_v["launches"], "sharded_rank0": path_d["launches"]}
     steps_by_path = {"parity": STEPS, "fast": STEPS_FAST, "pose": STEPS_POSE,
                      "trainer": path_t["steps_a"], "trainer_pose": path_t["steps_b"],
-                     "sam": path_s["steps"], "preprocessed": path_p["steps"], "vitpose_jpeg": 0}
+                     "sam": path_s["steps"], "preprocessed": path_p["steps"], "vitpose_jpeg": 0,
+                     "sharded_rank0": D_STEPS}
     # the trainer's counts hold its stages' launches too: per step only for the step paths
     per_step = {path: {k: n / steps_by_path[path] for k, n in launches_by_path[path].items()}
-                for path in ("parity", "fast", "pose")}
+                for path in ("parity", "fast", "pose", "sharded_rank0")}
     log(f"kernel launches by path: {launches_by_path} over steps {steps_by_path}")
 
     kernels = [
@@ -2146,13 +2524,17 @@ def main() -> int:
             "launches": launches["nn1"], "launches_per_step": per_step["parity"]["nn1"],
             "launches_by_path": {k: v["nn1"] for k, v in launches_by_path.items()}, "steps_by_path": steps_by_path,
             "launches_per_step_by_path": {k: v["nn1"] for k, v in per_step.items()},
-            "max_abs_err": max(err_a, err_a3, err_a4, path_t["held_err"]["nn1"], path_p["held_err"]["nn1"]),
-            "max_err": max(err_a, err_a3, err_a4, path_t["held_err"]["nn1"], path_p["held_err"]["nn1"]),
+            "max_abs_err": max(err_a, err_a3, err_a4, path_t["held_err"]["nn1"], path_p["held_err"]["nn1"],
+                               path_d["held_err"]["nn1"]),
+            "max_err": max(err_a, err_a3, err_a4, path_t["held_err"]["nn1"], path_p["held_err"]["nn1"],
+                           path_d["held_err"]["nn1"]),
             "max_abs_err_path_t": path_t["held_err"]["nn1"],
             "shapes_held_path_t": sum(1 for k in path_t["held"] if k[0] == "nn1"),
             "max_abs_err_path_p": path_p["held_err"]["nn1"],
             "shapes_held_path_p": sum(1 for k in path_p["held"] if k[0] == "nn1"),
             "path_p": {**path_p["nn1"], "launches": path_p["launches"]["nn1"]},
+            "path_d_rank0": {**path_d["nn1"], "launches": path_d["launches"]["nn1"],
+                             "max_abs_err": path_d["held_err"]["nn1"]},
             "max_abs_err_pose_meshes": err_a4, "ms_pose_meshes": t_a4, "ms": t_a, "kernel_ms": t_a,
             "plain_ms": t_a_plain, "bound_ms": bound_a,
             "bound_by": "operations" if a_ops / PEAK_FP32_FLOPS > a_bytes / PEAK_BYTES else "bytes",
@@ -2170,13 +2552,16 @@ def main() -> int:
             "steps_by_path": steps_by_path,
             "launches_per_step_by_path": {k: v["grid_trilinear"] for k, v in per_step.items()},
             "max_abs_err": max(err_b, err_b1, path_t["held_err"]["grid_trilinear"],
-                               path_p["held_err"]["grid_trilinear"]),
-            "max_err": max(err_b, err_b1, path_t["held_err"]["grid_trilinear"], path_p["held_err"]["grid_trilinear"]),
+                               path_p["held_err"]["grid_trilinear"], path_d["held_err"]["grid_trilinear"]),
+            "max_err": max(err_b, err_b1, path_t["held_err"]["grid_trilinear"], path_p["held_err"]["grid_trilinear"],
+                           path_d["held_err"]["grid_trilinear"]),
             "max_abs_err_path_t": path_t["held_err"]["grid_trilinear"],
             "shapes_held_path_t": sum(1 for k in path_t["held"] if k[0] == "grid_trilinear"),
             "max_abs_err_path_p": path_p["held_err"]["grid_trilinear"],
             "shapes_held_path_p": sum(1 for k in path_p["held"] if k[0] == "grid_trilinear"),
             "path_p": {**path_p["grid"], "launches": path_p["launches"]["grid_trilinear"]},
+            "path_d_rank0": {**path_d["grid"], "launches": path_d["launches"]["grid_trilinear"],
+                             "max_abs_err": path_d["held_err"]["grid_trilinear"]},
             "ms": t_b, "kernel_ms": t_b,
             "plain_ms": t_b_plain, "bound_ms": bound_b,
             "bound_by": "operations" if b_ops / PEAK_FP32_FLOPS > b_bytes / PEAK_BYTES else "bytes",

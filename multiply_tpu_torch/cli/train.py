@@ -2,7 +2,7 @@
 
     python -m multiply_tpu_torch.cli.train --conf confs/synthetic_base.yaml [--max_epochs N]
         [--run_dir D] [--is_continue] [--data_root R] [--set model.it_per_loop=5 ...] [--device cpu]
-        [--profile N]
+        [--profile N] [--devices N]
 
 Counterpart of the repository's `train.py`: the composed YAML config with
 dotted overrides, the sequence (the synthetic scene or a preprocessed Hi4D
@@ -13,10 +13,17 @@ the SAM stage is `SamSegmenter` over the frames; without one it is
 writes `<run_dir>/profile/summary.json` and exits. Run artifacts
 (checkpoints, stage_* files, validation renders, metrics.jsonl) go to
 outputs/<exp>/<run>/ unless --run_dir says otherwise. Runs on the card;
-`--device cpu` is for tests at tiny widths (`--set` them). Not ported yet, and
-refused rather than ignored: several devices (--devices, or `devices` in the
-config; ROADMAP.md, queue 1). A synthetic sequence ignores
-`dataset.train.ratio_uncertain`, as the JAX entry does.
+`--device cpu` is for tests at tiny widths (`--set` them). A synthetic
+sequence ignores `dataset.train.ratio_uncertain`, as the JAX entry does.
+
+`--devices N` (or `devices: N` in the config, read as the JAX entry reads
+them) splits each step's rays over N processes (`parallel/sharding.py`): rank
+r on `cuda:r` with NCCL, rank 0 in this process and the others spawned; more
+ranks than visible cards is refused. With `--device cpu` the N ranks are
+`gloo` processes on the CPU, for tests. Rank 0 runs the stages and writes
+every file; `--profile` traces rank 0's steps. A rank waits in one
+collective at most `dist_timeout_s` (config, default 3600 s: the others wait
+there while rank 0 runs the epoch-end stages).
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import os
 import numpy as np
 import yaml
 
-NOT_PORTED = "is not ported to the PyTorch package yet (ROADMAP.md, queue 1)"
+RENDEZVOUS_FILE = ".rendezvous"  # under run_dir, for `--devices N`
 
 
 def parse_overrides(sets: list[str]) -> dict:
@@ -107,7 +114,8 @@ def parse_args(argv=None):
     ap.add_argument("--max_epochs", type=int, default=None)
     ap.add_argument("--run_dir", default=None)
     ap.add_argument("--is_continue", action="store_true")
-    ap.add_argument("--devices", type=int, default=0, metavar="N", help=f"several devices {NOT_PORTED}")
+    ap.add_argument("--devices", type=int, default=0, metavar="N",
+                    help="split each step's rays over N processes, one device each (cuda:0..N-1)")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="trace N training steps, write <run_dir>/profile/summary.json and exit")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VAL", dest="sets",
@@ -140,22 +148,31 @@ def build_segmenter(conf, seq, device="cuda"):
     return PriorSegmenter()
 
 
-def build_trainer(args):
-    """(trainer, config, checkpoint directory) for parsed arguments; resumes
-    from the latest epoch checkpoint with --is_continue or model.is_continue."""
+def load_conf(args):
     from ..config import load_config
+
+    return load_config(args.conf, overrides=parse_overrides(args.sets) or None)
+
+
+def run_dir_of(args, conf) -> str:
+    return args.run_dir or os.path.join("outputs", str(conf.get("exp", "exp")), str(conf.get("run", "run")))
+
+
+def build_trainer(args, group=None):
+    """(trainer, config, checkpoint directory) for parsed arguments; resumes
+    from the latest epoch checkpoint with --is_continue or model.is_continue.
+    With a ray group the trainer is this rank's, on the group's device; only
+    rank 0 builds the SAM stage (the others run no stage)."""
     from ..engine.trainer import Trainer
 
-    conf = load_config(args.conf, overrides=parse_overrides(args.sets) or None)
-    devices = args.devices or conf.get("devices", None) or 0
-    if int(devices) > 1:
-        raise SystemExit(f"devices={devices}: training on several devices {NOT_PORTED}")
-    run_dir = args.run_dir or os.path.join("outputs", str(conf.get("exp", "exp")), str(conf.get("run", "run")))
+    conf = load_conf(args)
+    run_dir = run_dir_of(args, conf)
     os.makedirs(run_dir, exist_ok=True)
-    seq = build_sequence(conf, run_dir, args.data_root, device=args.device)
-    trainer = Trainer(conf, seq, build_servers(conf, seq, args.device), run_dir=run_dir,
-                      segmenter=build_segmenter(conf, seq, args.device), seed=conf.get("seed", 42),
-                      device=args.device)
+    device = args.device if group is None else str(group.device)
+    seq = build_sequence(conf, run_dir, args.data_root, device=device)
+    segmenter = build_segmenter(conf, seq, device) if group is None or group.rank == 0 else None
+    trainer = Trainer(conf, seq, build_servers(conf, seq, device), run_dir=run_dir, segmenter=segmenter,
+                      seed=conf.get("seed", 42), device=device, group=group)
     ckpt_dir = os.path.join(run_dir, "checkpoints")
     if args.is_continue or conf.model.get("is_continue", False):
         ckpt = latest_checkpoint(run_dir)
@@ -165,10 +182,8 @@ def build_trainer(args):
     return trainer, conf, ckpt_dir
 
 
-def main(argv=None):
-    """Train as configured (or profile `--profile N` steps); returns the trainer."""
-    args = parse_args(argv)
-    trainer, conf, ckpt_dir = build_trainer(args)
+def run(trainer, args, conf, ckpt_dir):
+    """Train as configured, or profile `--profile N` steps; returns the trainer."""
     if args.profile:
         from ..utils.profiling import profile_training_steps
 
@@ -176,6 +191,59 @@ def main(argv=None):
         return trainer
     trainer.fit(args.max_epochs or conf.get("max_epochs", 10_000), ckpt_dir=ckpt_dir)
     return trainer
+
+
+def rank_devices(device: str, n: int) -> tuple[list, str]:
+    """(device of each of n ranks, backend): cuda:0..n-1 with NCCL, refused
+    beyond the visible cards; the CPU n times with gloo."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return [device] * n, "gloo"
+    have = torch.cuda.device_count()
+    if n > have:
+        raise SystemExit(f"devices={n}: {n} CUDA devices asked for, {have} visible")
+    return [f"cuda:{r}" for r in range(n)], "nccl"
+
+
+def train_rank(group, args):
+    """One rank of `--devices N` (a module-level function: spawned ranks
+    import it): rank 0 trains and returns its trainer, the others follow it."""
+    trainer, conf, ckpt_dir = build_trainer(args, group)
+    if group.rank != 0:
+        trainer.follow()
+        return None
+    try:
+        return run(trainer, args, conf, ckpt_dir)
+    finally:
+        trainer.release_followers()
+
+
+def train_on_ranks(args, devices: list, backend: str):
+    """Train with the rays of each step split over one rank per entry of
+    `devices` (rank 0 in this process); returns rank 0's trainer. The entry
+    calls it with `rank_devices`; a caller may name any devices and backend
+    (two ranks on one card need gloo)."""
+    from ..parallel import launch
+
+    conf = load_conf(args)
+    run_dir = run_dir_of(args, conf)
+    os.makedirs(run_dir, exist_ok=True)
+    args = argparse.Namespace(**{**vars(args), "run_dir": run_dir})
+    return launch(train_rank, (args,), devices, backend, os.path.join(run_dir, RENDEZVOUS_FILE),
+                  timeout_s=float(conf.get("dist_timeout_s", 3600)))
+
+
+def main(argv=None):
+    """Train as configured (or profile `--profile N` steps); returns the
+    trainer (rank 0's with `--devices N`)."""
+    args = parse_args(argv)
+    conf = load_conf(args)
+    devices = int(args.devices or conf.get("devices", None) or 0)
+    if devices > 1:
+        return train_on_ranks(args, *rank_devices(args.device, devices))
+    trainer, conf, ckpt_dir = build_trainer(args)
+    return run(trainer, args, conf, ckpt_dir)
 
 
 if __name__ == "__main__":

@@ -5,6 +5,10 @@ Counterpart of `multiply_tpu/engine/evaluator.py`, with the same directory
 layout:
     test_rendering/%04d.png, test_fg_rendering/, test_normal/, test_mask/,
     test_instance_mask/<p>/%04d.png, test_mesh/<p>/<idx>_canonical|_deformed.ply
+
+With a ray group (`group`, as JAX's `mesh=`), the chunk is rounded up to a
+multiple of the ranks and each rank renders its share of every chunk; the
+shares are gathered in rank order. Every rank calls `render_image`.
 """
 
 from __future__ import annotations
@@ -30,10 +34,13 @@ def psnr(pred: np.ndarray, gt: np.ndarray) -> float:
 
 class Evaluator:
     def __init__(self, renderer: MultiplyRenderer, person_state: PersonState, servers: list,
-                 pixel_per_batch: int = 512):
+                 pixel_per_batch: int = 512, group=None):
         self.renderer = renderer
         self.state = person_state
         self.servers = servers
+        self.group = group
+        if group is not None:
+            pixel_per_batch = -(-pixel_per_batch // group.world) * group.world
         self.chunk = pixel_per_batch
 
     def render_image(self, body_tables, item: dict, epoch: int = 10_000,
@@ -57,7 +64,8 @@ class Evaluator:
                     transl=body_tables.transl[:, idx], thetas=body_tables.thetas(idx),
                     betas=body_tables.betas[:, 0], frame_idx=idx, epoch=epoch,
                 )
-                out = self.renderer.render(state, inputs, train=False)
+                out = self.renderer.render(state, inputs, train=False) if self.group is None \
+                    else self._render_share(state, inputs)
                 for k in RENDER_KEYS:
                     outs[k].append(out[k])
         merged = {k: torch.cat(v).cpu().numpy() for k, v in outs.items()}
@@ -69,6 +77,21 @@ class Evaluator:
         if "rgb" in item:
             merged["psnr"] = psnr(merged["rgb_values"], np.asarray(item["rgb"], np.float32))
         return merged
+
+    def _render_share(self, state: PersonState, inputs: RenderInputs) -> dict:
+        """Render this rank's share of a chunk (the last chunk padded to a
+        multiple of the ranks by repeating its last pixel) and gather the
+        shares: one collective of every output's columns."""
+        from ..parallel import shard_render_inputs
+
+        n, g = inputs.uv.shape[0], self.group
+        pad = -n % g.world
+        uv = torch.cat([inputs.uv, inputs.uv[-1:].expand(pad, 2)]) if pad else inputs.uv
+        out = self.renderer.render(state, shard_render_inputs(inputs._replace(uv=uv), g.rank, g.world), train=False)
+        cols = [out[k].reshape(out[k].shape[0], -1) for k in RENDER_KEYS]
+        whole = g.all_gather(torch.cat(cols, 1))[:n]
+        parts = whole.split([c.shape[1] for c in cols], 1)
+        return {k: p.reshape((n,) + out[k].shape[1:]) for k, p in zip(RENDER_KEYS, parts)}
 
     def export_meshes(self, canonical_sdf_fns: list, body_tables, deformers: SMPLDeformer, frame_idx: int,
                       scale: float, out_dir: str, res_up: int = 4, deform_k: int = 7) -> None:

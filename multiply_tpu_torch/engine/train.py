@@ -166,8 +166,13 @@ class TrainStep:
         s_loss = sparse_silhouette_loss(ray_o, ray_d, verts_list, faces_list, pose_batch.sam_probs)
         return d_loss, s_loss, i_loss
 
-    def forward_loss(self, ts: TrainState, batch: Batch, noise=None, generator=None, pose_batch=None):
-        """(loss, logs) of one batch, differentiable w.r.t. `ts.params()`."""
+    def forward_loss(self, ts: TrainState, batch: Batch, noise=None, generator=None, pose_batch=None,
+                     share=None):
+        """(loss, logs) of one batch, differentiable w.r.t. `ts.params()`.
+        With `share` (a `RayShare`), `batch` and `noise` are this rank's share
+        of the rays and the loss and logs are this rank's share of the whole
+        batch's; the pose-only terms, computed whole on every rank from the
+        replicated `pose_batch`, are weighted 1/W."""
         if noise is None:
             noise = self.draw_noise(batch, pose_batch, generator)
         body, idx = ts.body, batch.frame_idx
@@ -180,7 +185,8 @@ class TrainStep:
         out = ts.model.render(self.state, inputs, train=True, noise=noise)
         if ts.epoch > 250:
             out["temporal_loss"] = ((body.thetas(max(idx - 1, 0)) - thetas) ** 2).mean()
-        loss, logs = total_loss(self.loss_cfg, out, batch.rgb, ts.epoch, sam_mask_logits=batch.sam_mask)
+        loss, logs = total_loss(self.loss_cfg, out, batch.rgb, ts.epoch, sam_mask_logits=batch.sam_mask,
+                                share=share)
 
         zero = torch.zeros((), device=loss.device)
         d_w, s_w, i_w = zero, zero, zero
@@ -191,6 +197,8 @@ class TrainStep:
             d_w = cfg.depth_order_weight * decay * d_raw
             s_w = cfg.silhouette_weight * decay * s_raw
             i_w = cfg.interpenetration_weight * decay * i_raw
+            if share is not None:
+                d_w, s_w, i_w = d_w / share.world, s_w / share.world, i_w / share.world
             loss = loss + d_w + s_w + i_w
             logs["loss"] = loss
         logs["pose_depth_order_loss"] = d_w
@@ -198,10 +206,11 @@ class TrainStep:
         logs["pose_interpenetration_loss"] = i_w
         return loss, logs
 
-    def loss_and_grads(self, ts: TrainState, batch: Batch, noise=None, generator=None, pose_batch=None):
+    def loss_and_grads(self, ts: TrainState, batch: Batch, noise=None, generator=None, pose_batch=None,
+                       share=None):
         """(loss, logs, grads): grads by parameter name, zeros where unused."""
         params = ts.params()
-        loss, logs = self.forward_loss(ts, batch, noise, generator, pose_batch)
+        loss, logs = self.forward_loss(ts, batch, noise, generator, pose_batch, share)
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         grads = {
             k: torch.zeros_like(p) if g is None else g
@@ -214,17 +223,22 @@ class TrainStep:
         `pose_batch` (pose-only frames) adds the mesh-based depth-order,
         silhouette and interpenetration losses to the differentiated loss."""
         loss, logs, grads = self.loss_and_grads(ts, batch, noise, generator, pose_batch)
+        return self.update(ts, batch.mode, loss, logs, grads)
+
+    def update(self, ts: TrainState, mode: int, loss, logs: dict, grads: dict):
+        """The masked Adam update of a step in `mode` from its loss and
+        gradients, or none at all where either is non-finite; returns (ts, logs)."""
         finite = torch.isfinite(loss) & torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
         lr_now = multistep_lr(self.lr, ts.epoch, self.milestones, self.gamma)
         if bool(finite):  # otherwise drop the whole update, optimizer state included
             params = ts.params()
-            masks = _active_masks(params, batch.mode)
-            joint = {k: a and batch.mode != MODE_POSE_ONLY for k, a in masks.items()}
+            masks = _active_masks(params, mode)
+            joint = {k: a and mode != MODE_POSE_ONLY for k, a in masks.items()}
             ts.opt_joint = adam_update(
                 grads, ts.opt_joint, params, lr_now, make_lr_factors(params), joint
             )
             body = {k: p for k, p in params.items() if k.startswith("body.")}
-            pose = {k: masks[k] and batch.mode == MODE_POSE_ONLY for k in body}
+            pose = {k: masks[k] and mode == MODE_POSE_ONLY for k in body}
             ts.opt_pose = adam_update(
                 grads, ts.opt_pose, body, lr_now, {k: 0.1 for k in body}, pose
             )

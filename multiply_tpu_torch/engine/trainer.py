@@ -24,6 +24,16 @@ it, one at a time under a lock.
 Randomness: host draws use `np.random.default_rng(seed)` in the JAX package's
 order; step noise comes from `self.gen`, a `torch.Generator`, through
 `TrainStep.draw_noise`.
+
+Several devices (`group`, a `parallel.RayGroup`; counterpart of JAX's
+`devices` mesh): rank 0 is the controller. It alone runs the producer thread,
+draws each step's noise for the whole batch, runs every epoch-end stage and
+writes every file. Each step it sends the whole batch, its pose-loss payload
+and its noise to the other ranks, which wait in `follow()`, and every rank
+steps on its share of the rays (`parallel.sharded_train_step`). After a stage
+that changes what the step reads, rank 0 sends that too: the refreshed grids,
+and after opt_depth the parameters and both Adam states. A stage-overlap
+harvest is rank 0's decision, reaching the others as a grid message.
 """
 
 from __future__ import annotations
@@ -135,8 +145,9 @@ def pose_batch_from_meshes(meshes, uv, sam_probs, scale_to_full, bucket: int, de
 
 class Trainer:
     def __init__(self, conf, seq, servers: list, run_dir: str = ".", segmenter: Callable | None = None,
-                 seed: int = 42, device="cuda"):
+                 seed: int = 42, device="cuda", group=None):
         self.conf = conf
+        self.group = group
         self.seq = seq
         self.run_dir = run_dir
         self.segmenter = segmenter
@@ -204,8 +215,13 @@ class Trainer:
         ]
         self.ts = self.builder.init_state(BodyParamTable.stack(tables))
         self.epoch = 0
-        if model_conf.get("smpl_init", False):
+        if model_conf.get("smpl_init", False) and (group is None or group.rank == 0):
             self._apply_smpl_init(model_conf)
+        if group is not None:
+            from ..parallel import sharded_train_step
+
+            self._sharded_step = sharded_train_step(self.builder, group)
+            self.replicate_state()  # rank 0's weights (its SMPL init) everywhere
 
     def _apply_smpl_init(self, model_conf) -> None:
         """Start the SDF fields as the canonical body instead of a sphere: one
@@ -337,7 +353,9 @@ class Trainer:
 
     def _apply_canonical_grids(self, stacked: dict) -> None:
         """Swap in new grids. The step reads `builder.state`, so it is replaced
-        too: the next step's kernel reads the new grid."""
+        too: the next step's kernel reads the new grid (on every rank)."""
+        if self.group is not None:
+            stacked = self._command("grids", stacked)
         self.person_state = self.person_state._replace(cano_grid=stacked)
         self.builder.state = self.person_state
 
@@ -457,6 +475,62 @@ class Trainer:
                      frame_idx=int(item["idx"]), smpl_scale=t(item["smpl_scale"]), sam_mask=t(sam), mode=mode)
 
     # ------------------------------------------------------------------
+    # several devices
+    # ------------------------------------------------------------------
+
+    def replicate_state(self) -> None:
+        """Rank 0's parameters, both Adam states and per-person state (the
+        canonical grids among it) on every rank: each rank calls this at the
+        same point."""
+        from ..parallel import replicate
+
+        replicate([self.ts.params(), self.ts.opt_joint, self.ts.opt_pose, self.person_state], self.group)
+
+    def _command(self, kind: str, payload=None):
+        """Rank 0: send the other ranks what to do next (`follow` runs it) with
+        its tensors; every rank returns the payload on its own device."""
+        from ..parallel.sharding import broadcast_tree
+
+        msg = broadcast_tree({"kind": kind, "epoch": self.epoch, "payload": payload}, self.group)
+        return msg["payload"]
+
+    def follow(self) -> None:
+        """The loop of a rank other than 0: step on its share of the rays and
+        take the state rank 0 sends, until rank 0 says stop."""
+        from ..parallel.sharding import broadcast_tree
+
+        while True:
+            msg = broadcast_tree(None, self.group)
+            self.epoch = self.ts.epoch = msg["epoch"]
+            kind, payload = msg["kind"], msg["payload"]
+            if kind == "step":
+                batch, pose_batch, noise = payload
+                self.ts, _ = self._sharded_step(self.ts, batch, noise=noise, pose_batch=pose_batch)
+            elif kind == "grids":
+                self.person_state = self.person_state._replace(cano_grid=payload)
+                self.builder.state = self.person_state
+            elif kind == "state":
+                self.replicate_state()
+            elif kind == "stop":
+                return
+            else:
+                raise ValueError(f"unknown message {kind!r} from rank 0")
+
+    def release_followers(self) -> None:
+        """Rank 0: end the other ranks' `follow` loops."""
+        self._command("stop")
+
+    def train_step(self, batch: Batch, pose_batch: PoseLossBatch | None = None):
+        """One optimisation step on the whole batch; returns (ts, logs). Over
+        a ray group, rank 0 draws the whole batch's noise, sends the step to
+        the other ranks, and each rank steps on its share of the rays."""
+        if self.group is None:
+            return self.builder.step(self.ts, batch, generator=self.gen, pose_batch=pose_batch)
+        noise = self.builder.draw_noise(batch, pose_batch, self.gen)
+        batch, pose_batch, noise = self._command("step", (batch, pose_batch, noise))
+        return self._sharded_step(self.ts, batch, noise=noise, pose_batch=pose_batch)
+
+    # ------------------------------------------------------------------
     # training loop
     # ------------------------------------------------------------------
 
@@ -497,7 +571,7 @@ class Trainer:
                     raise got
                 mode, batch, pose_batch = got
                 mode_counts[mode] += 1
-                self.ts, logs = self.builder.step(self.ts, batch, generator=self.gen, pose_batch=pose_batch)
+                self.ts, logs = self.train_step(batch, pose_batch)
         finally:
             while t.is_alive():  # let a blocked producer finish before leaving
                 try:
@@ -640,6 +714,9 @@ class Trainer:
             return
         for frame_idx in range(self.num_frames):
             self._opt_depth_frame(frame_idx)
+        if self.group is not None:  # the other ranks' steps read the new body parameters
+            self._command("state")
+            self.replicate_state()
 
     def _opt_depth_frame(self, frame_idx: int) -> None:
         item = self.seq.get_eval_item(frame_idx)
@@ -815,3 +892,5 @@ class Trainer:
         self.ts.opt_pose = AdamState(**state["opt_pose"])
         self.epoch = int(state["epoch"])
         self.ts.epoch = self.epoch
+        if self.group is not None:  # every rank read the same file; rank 0's copy wins
+            self.replicate_state()

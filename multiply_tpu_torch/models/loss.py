@@ -5,11 +5,19 @@ Counterpart of `multiply_tpu/models/loss.py`: L1 RGB, eikonal, BCE opacity
 temporal pose smoothness, the SMPL-surface clamp, depth-order decay and
 zero-pose decay. Masked means replace boolean indexing so every term keeps a
 fixed shape.
+
+Rays split over ranks (`parallel/sharding.py`): with a `RayShare`, each term
+is this rank's share of the whole batch's term, so that the shares sum to the
+one-device loss. A per-ray mean is the rank's own mean times its count over
+the whole batch's (one all-reduce of the counts a step): an average of the
+ranks' means is a different loss whenever their counts differ. A term that
+reads no per-ray data (eikonal, temporal, SMPL surface, zero pose) is computed
+whole on every rank and weighted 1/W.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -55,6 +63,28 @@ class LossConfig(NamedTuple):
             silhouette_weight=opt.get("silhouette_weight", 0.0),
             interpenetration_weight=opt.get("interpenetration_loss_weight", 0.0),
         )
+
+
+class RayShare(NamedTuple):
+    """This call sees one rank's share of a ray batch split over `world`
+    ranks; `sum` adds a tensor over the ranks, in place (a detached all-reduce)."""
+
+    world: int
+    sum: Callable[[torch.Tensor], torch.Tensor]
+
+
+def ray_fractions(share: RayShare, outputs: dict) -> torch.Tensor:
+    """This rank's count over the whole batch's, of the finite colours (the
+    L1 term's mask), of the rays (the opacity and SAM terms) and of the rays
+    through the SMPL interior (the in-shape term): (3,), detached. Each is
+    exactly 1 on one rank."""
+    rgb = outputs["rgb_values"]
+    inside = outputs.get("index_in_surface")
+    local = torch.stack([
+        torch.isfinite(rgb).all(-1).sum(), torch.tensor(rgb.shape[0], device=rgb.device),
+        inside.sum() if inside is not None else torch.zeros((), dtype=torch.long, device=rgb.device),
+    ]).float()
+    return local / share.sum(local.clone()).clamp_min(1.0)
 
 
 def _zero(like: torch.Tensor) -> torch.Tensor:
@@ -118,8 +148,10 @@ def depth_order(t_front: torch.Tensor, t_correct: torch.Tensor, valid: torch.Ten
 
 def total_loss(cfg: LossConfig, outputs: dict, rgb_gt: torch.Tensor, epoch: int,
                sam_mask_logits: torch.Tensor | None = None,
-               depth_order_loss: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
-    """Combine all terms with the reference's epoch schedules."""
+               depth_order_loss: torch.Tensor | None = None,
+               share: RayShare | None = None) -> tuple[torch.Tensor, dict]:
+    """Combine all terms with the reference's epoch schedules; with `share`,
+    each term (and the total) is this rank's share of the whole batch's."""
     epoch = float(epoch)
     rgb_loss = rgb_l1(outputs["rgb_values"], rgb_gt)
     zero = _zero(rgb_loss)
@@ -148,6 +180,12 @@ def total_loss(cfg: LossConfig, outputs: dict, rgb_gt: torch.Tensor, epoch: int,
         * (1.0 - min(float(cfg.zero_pose_milestone), epoch) / cfg.zero_pose_milestone)
     )
     increase = min(1.0, epoch / 100.0) if cfg.increase_sam else 1.0
+    if share is not None:
+        f_rgb, f_ray, f_in = ray_fractions(share, outputs).unbind()
+        rgb_loss, bce_loss, in_shape_loss, sam_loss = (
+            rgb_loss * f_rgb, bce_loss * f_ray, in_shape_loss * f_in, sam_loss * f_ray)
+        eik_loss, temporal_loss, smpl_surface_loss, zero_pose_loss = (
+            t / share.world for t in (eik_loss, temporal_loss, smpl_surface_loss, zero_pose_loss))
 
     loss = (
         rgb_loss

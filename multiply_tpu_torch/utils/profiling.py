@@ -83,7 +83,8 @@ def print_summary(rows: list[dict], wall: float | None = None, steps: int | None
 
 def profile_training_steps(trainer, n_steps: int, log_dir: str) -> list[dict]:
     """Two warm joint steps, then `n_steps` traced ones; print the table and
-    write it to `<log_dir>/summary.json` with the steps and their wall time."""
+    write it to `<log_dir>/summary.json` with the steps and their wall time.
+    Over a ray group this traces rank 0, the other ranks following its steps."""
     from ..engine.train import MODE_JOINT
 
     os.makedirs(log_dir, exist_ok=True)
@@ -93,12 +94,12 @@ def profile_training_steps(trainer, n_steps: int, log_dir: str) -> list[dict]:
                for i in range(n_steps + 2)]
     trainer.ts.epoch = trainer.epoch
     for b in batches[:2]:
-        trainer.ts, logs = trainer.builder.step(trainer.ts, b, generator=trainer.gen)
+        trainer.ts, logs = trainer.train_step(b)
     float(logs["loss"])  # waits for the card
     with profile_trace(log_dir):
         t0 = time.time()
         for b in batches[2:]:
-            trainer.ts, logs = trainer.builder.step(trainer.ts, b, generator=trainer.gen)
+            trainer.ts, logs = trainer.train_step(b)
         float(logs["loss"])
         wall = time.time() - t0
 

@@ -160,16 +160,71 @@ def test_export_meshes_writes_canonical_and_deformed(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [("--devices", "2")])
-def test_train_entry_refuses_what_is_not_ported(tmp_path, flags):
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        cli_train.main(argv(tmp_path, *flags))
+def test_train_entry_refuses_what_is_not_ported(tmp_path, monkeypatch, flags):
+    """(Named when several devices were refused.) `--devices 2` on `cuda` with
+    one card visible is refused before anything is built, naming both numbers."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="2 CUDA devices asked for, 1 visible"):
+        cli_train.main(["--conf", CONF, "--run_dir", str(tmp_path), "--device", "cuda", *flags])
+    assert not os.listdir(tmp_path)
 
 
-def test_train_entry_refuses_devices_in_the_config(tmp_path):
-    """`devices: 2` in the config is refused as `--devices 2` is, before any
-    trainer is built."""
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        cli_train.build_trainer(cli_train.parse_args(argv(tmp_path, sets=("devices=2",))))
+def test_train_entry_refuses_devices_in_the_config(tmp_path, monkeypatch):
+    """`devices: 2` in the config is read as `--devices 2` is: on `cuda`
+    with one card visible, the same refusal."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="2 CUDA devices asked for, 1 visible"):
+        cli_train.main(["--conf", CONF, "--run_dir", str(tmp_path), "--device", "cuda", "--set=devices=2"])
+
+
+def test_train_entry_takes_devices_from_the_config(tmp_path, monkeypatch):
+    """`devices: 2` in the config reaches the launch as `--devices 2` does:
+    two gloo ranks on the CPU."""
+    launched = []
+    monkeypatch.setattr(cli_train, "train_on_ranks", lambda args, devices, backend: launched.append((devices, backend)))
+    cli_train.main(argv(tmp_path, sets=("devices=2",)))
+    cli_train.main(argv(tmp_path, "--devices", "2"))
+    assert launched == [(["cpu", "cpu"], "gloo")] * 2
+
+
+def test_train_entry_on_two_cpu_ranks_matches_one_process(tmp_path):
+    """`--devices 2 --device cpu`: epochs 0-1 (instance masks, SAM stage,
+    validation, checkpoint) with each step's rays split over two gloo ranks.
+    Rank 0 alone writes: one metrics record an epoch, the files of one run.
+    The last checkpoint's parameters are a 1-process run's within 1e-5 of the
+    largest parameter: the same steps summed in another order, whose f32
+    rounding Adam magnifies only on entries with a near-zero gradient."""
+    sets = ("dist_timeout_s=60",)
+    trainer = cli_train.main(argv(tmp_path / "two", "--max_epochs", "2", "--devices", "2", sets=sets))
+    assert trainer.group.rank == 0 and trainer.epoch == 2
+    cli_train.main(argv(tmp_path / "one", "--max_epochs", "2", sets=sets))
+    assert sorted(os.listdir(tmp_path / "two")) == sorted(os.listdir(tmp_path / "one"))
+    for run in ("one", "two"):
+        with open(tmp_path / run / "metrics.jsonl") as f:
+            epochs = [json.loads(line)["epoch"] for line in f if "epoch_seconds" in line]
+        assert epochs == [0, 1], (run, epochs)
+    assert os.path.exists(tmp_path / "two" / "val" / "epoch_00000.png")
+    two, one = (torch.load(tmp_path / run / "checkpoints" / "last", weights_only=True) for run in ("two", "one"))
+    assert two["epoch"] == one["epoch"] == 2 and two["opt_joint"]["count"] == one["opt_joint"]["count"]
+    top = max(float(p.abs().max()) for p in one["params"].values())
+    gap = max(float((two["params"][k] - p).abs().max()) for k, p in one["params"].items())
+    assert gap <= 1e-5 * top, f"2-rank parameters part from 1-process ones by {gap:.3g} (largest {top:.3g})"
+
+
+def test_two_cpu_ranks_stay_equal_across_the_epoch_20_stages(tmp_path):
+    """Rank 0 runs epoch 0, then epoch 20's mesh refresh (harvested from the
+    stage worker) and opt_depth, and sends the other rank the new grids and
+    body parameters: after it, both ranks' parameters and grids are bitwise
+    equal, and the refreshed grid is not the first one."""
+    from multiply_tpu_torch.parallel import launch
+
+    import _torch_parallel_worker as worker
+
+    args = cli_train.parse_args(argv(tmp_path, sets=("dist_timeout_s=60", "model.stage_overlap=true")))
+    moved, equal, counts = launch(worker.stages_rank, (args,), ["cpu", "cpu"], "gloo",
+                                  str(tmp_path / "rendezvous"), timeout_s=60)
+    assert moved and equal
+    assert counts["net.fg_implicit.lins.0.weight"] == 4  # two steps in each of epochs 0 and 20
 
 
 def test_train_entry_profiles_steps_and_exits(tmp_path):
