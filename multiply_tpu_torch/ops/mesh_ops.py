@@ -14,6 +14,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 
+# rays x faces of one ray chunk's face tile on a GPU (2048 rays against a 4096-face
+# tile, 1024 against a full 8192-face one): a checkpointed chunk's backward holds
+# a few hundred bytes an element at its peak
+CUDA_TILE_ELEMS = 2048 * 4096
+
+
 def _dot(a, b):
     return (a * b).sum(-1)
 
@@ -182,13 +188,20 @@ def _ray_chunk_hits(oc, dc, tris, soft_tau: float, face_chunk: int):
 
 
 def ray_mesh_intersect(ray_o, ray_d, verts, faces, soft_tau: float = 0.0,
-                       chunk_size: int = 256, face_chunk: int = 8192) -> dict:
+                       chunk_size: int | None = None, face_chunk: int = 8192) -> dict:
     """Front-hit depth per ray (Moller-Trumbore): {"t": (R,) (1e10 on a miss),
     "hit": (R,) bool, "t_soft": (R,) the softmin-blended depth over all hit
     faces when soft_tau > 0 (else t), 0 on a miss}. Differentiable w.r.t.
     `verts`. When a gradient is wanted each ray chunk is checkpointed, so the
-    backward keeps no (chunk x face tile x 3) intermediate alive."""
+    backward keeps no (chunk x face tile x 3) intermediate alive.
+
+    `chunk_size` None: 256 rays on the CPU; on a GPU as many rays as keep a
+    chunk x face tile at CUDA_TILE_ELEMS, since there a chunk's forward,
+    recompute and backward cost launches more than arithmetic."""
     tris = verts[faces]
+    if chunk_size is None:
+        tile = min(tris.shape[0], face_chunk)
+        chunk_size = 256 if tris.device.type == "cpu" else max(256, CUDA_TILE_ELEMS // max(tile, 1))
     remat = torch.is_grad_enabled() and (tris.requires_grad or ray_o.requires_grad or ray_d.requires_grad)
     out = []
     for oc, dc in zip(ray_o.split(chunk_size), ray_d.split(chunk_size)):

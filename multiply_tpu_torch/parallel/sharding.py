@@ -316,12 +316,14 @@ def launch(fn: Callable, args: tuple, devices: list, backend: str, init_file: st
     if len(devices) > 1:
         ctx = mp.start_processes(_spawned_rank, args=(*rest, threads), nprocs=len(devices) - 1, join=False,
                                  start_method="spawn")
+    own_threads = torch.get_num_threads()
     try:
-        result = _run_rank(0, *rest)
+        result = _run_rank(0, *rest, threads)
         if ctx is not None:
             _join(ctx, timeout_s)
         return result
     finally:
+        torch.set_num_threads(own_threads)  # rank 0 ran in this process on its share
         if ctx is not None:
             for p in ctx.processes:
                 if p.is_alive():

@@ -69,6 +69,29 @@ def test_ray_mesh_intersect_soft_matches_jax(soft_tau):
     assert torch.equal(plain["t_soft"], got["t_soft"].detach())
 
 
+def test_ray_mesh_intersect_default_chunks_split_rays_only():
+    """`chunk_size=None` (256 rays on the CPU; on a GPU as many as
+    `CUDA_TILE_ELEMS` allows) gives what one chunk of every ray and small
+    chunks give, with and without the soft depth: values to 1e-6, gradients
+    (summed over chunks in another grouping) to the JAX test's 1e-4 / 1e-5."""
+    verts, faces = _padded_sphere(2, 0.6, (0.1, 0.0, 2.5), 200, 400)
+    o, d = _rays(600, 1)
+    for soft_tau in (0.0, 0.01):
+        outs, grads = [], []
+        for chunk in (None, 600, 48):
+            tv = _t(verts).requires_grad_(True)
+            out = mesh_ops.ray_mesh_intersect(_t(o), _t(d), tv, _t(faces), soft_tau=soft_tau, chunk_size=chunk)
+            (g,) = torch.autograd.grad(torch.where(out["hit"], out["t_soft"] + out["t"], 0.0).sum(), tv)
+            outs.append(out)
+            grads.append(g)
+        assert 100 < int(outs[0]["hit"].sum()) < 600
+        for out, g in zip(outs[1:], grads[1:]):
+            assert torch.equal(out["hit"], outs[0]["hit"])
+            for k in ("t", "t_soft"):
+                torch.testing.assert_close(out[k], outs[0][k], rtol=0.0, atol=1e-6)
+            torch.testing.assert_close(g, grads[0], rtol=1e-4, atol=1e-5)
+
+
 def test_winding_inside_matches_jax():
     verts, faces = _padded_sphere(2, 1.0, (0.0, 0.0, 0.0), 200, 400)
     rng = np.random.default_rng(1)
