@@ -136,8 +136,25 @@ Phases, each fatal on failure:
      with the ones missed and do not fail the run: the port misses some of
      them, an open finding in `ROADMAP.md` section 3 (not met, not loosened);
      every other check of the path is fatal.
-Each of the paths 5-7, 9-12, 14 (D1, rank 0) and 15 (L4 in its own process)
-zeroes the kernels' launch counters just before it and reads them just after. Prints the `{"kernels": [...]}` line,
+ 16. path M, one person and three persons (`run_path_m1`, `run_path_m2`):
+     M1, full-width steps of the parity preset at P = 3 (the pairwise and
+     the sorted composite, then pose-only steps with a `PoseLossBatch` of
+     three overlapping bodies) and at P = 1, each with its median step and
+     range, launches, idle share and peak memory, and the renderer's
+     composite alone (forward and backward) at P = 1, 2 and 3; M2, the
+     training entry's code on `confs/synthetic_p3.yaml` at its 4 frames of
+     48x64 and 60 epochs across every stage boundary (mesh refresh at 20 and
+     40, pose correction until 24, opt_depth at 30 cut to 4 iterations a
+     frame, instance masks + the entry's SAM stage and validation at 0 and
+     50), then one frame of the test entry: every step's loss finite, no
+     update skipped, its mode `_select_mode`'s, one `grid_trilinear` and the
+     sampler's `nn1` launches in each step, the stages' files with P = 3 in
+     their shapes and all three persons' meshes, each kernel held to its
+     plain version on each new shape. Phase 4 holds and times both kernels
+     at P = 1 and P = 3 too.
+Each of the paths 5-7, 9-12, 14 (D1, rank 0), 15 (L4 in its own process) and
+16 (each M1 run, and M2) zeroes the kernels' launch counters just before it
+and reads them just after. Prints the `{"kernels": [...]}` line,
 then the nvidia-smi line, then `{"ok": true, "device": {...}}` as the last
 line.
 """
@@ -2482,6 +2499,303 @@ def run_path_l():
             "held": held, "held_err": held_err, "phase_s": phase_s, "seconds": time.perf_counter() - t_path}
 
 
+# ---- path M: one person and three persons (the paper's multi-person scenes) ----
+
+M_PERSONS = (3, 1)  # M1's person counts at the parity preset's widths
+M_COMPOSITE_PERSONS = (1, 2, 3)  # the composite alone, timed at the step's shapes
+M_CONF = os.path.join("confs", "synthetic_p3.yaml")  # M2: P = 3, every stage boundary within 60 epochs
+M_SETS = ("model.it_per_loop=4",)  # opt_depth at epoch 30: 4 iterations a frame of the configured 100
+M_STAGE_EPOCHS = {"mesh_refresh": (20, 40), "opt_depth": (30,), "instance_mask": (0, 50), "sam": (0, 50),
+                  "validation": (0, 50)}
+
+
+def overlapping(transl):
+    """Each person after the first stepped in front of and into the one before it."""
+    import numpy as np
+
+    out = transl.copy()
+    for p in range(1, out.shape[1]):
+        out[:, p] = out[:, p - 1] + np.array([0.1, 0.0, -0.15], np.float32)
+    return out
+
+
+def time_composite(renderer, P, S, dev, seed):
+    """The renderer's composite (`MultiplyRenderer.composite`) alone, forward and
+    backward, at P persons x RAYS rays x S intervals, each form: (call ms by CUDA
+    events, device ms and launches a call by the profiler) by form."""
+    import torch
+
+    g = torch.Generator(dev).manual_seed(seed)
+    ends = torch.sort(0.5 + 4.0 * torch.rand((P, RAYS, S), generator=g, device=dev), dim=-1).values
+    fe = (0.05 * torch.rand((P, RAYS, S), generator=g, device=dev)).requires_grad_(True)
+    rgb = torch.rand((P, RAYS, S, 3), generator=g, device=dev).requires_grad_(True)
+    nrm = torch.randn((P, RAYS, S, 3), generator=g, device=dev).requires_grad_(True)
+
+    def run():
+        out = renderer.composite(fe, ends, rgb, nrm)
+        loss = out["fg_rgb_values"].sum() + out["normal_values"].sum() + out["acc_map"].sum()
+        return torch.autograd.grad(loss, (fe, rgb, nrm))
+
+    times, keep = {}, renderer.composite_matmul
+    for matmul in (True, False):
+        renderer.composite_matmul = matmul
+        with torch.no_grad():
+            out = renderer.composite(fe, ends, rgb, nrm)
+            assert float(out["acc_map"].max()) <= 1.0 + 1e-6, f"composite P={P}: acc_map above 1"
+            err = (out["acc_person"].sum(-1) - out["acc_map"]).abs().max().item()
+            assert err <= 1e-5, f"composite P={P}: acc_person does not sum to acc_map ({err})"
+        ms = cuda_time_ms(run, reps=20)
+        dev_ms, per_call = device_time_ms(run, "", reps=10)
+        times["pairwise" if matmul else "sorted"] = {"ms": ms, "device_ms": dev_ms, "launches": per_call}
+    renderer.composite_matmul = keep
+    return times
+
+
+def kernels_by_persons(q, verts, grid_args, S):
+    """Both kernels at path M's person counts, on phase 4's inputs with the
+    person axis (each kernel's gridDim.y) cut to one or extended to three:
+    each held to its plain version (`nn1` also its exact build, `grid_trilinear`
+    per point and fused over runs of S) and timed (`time_kernels`). Returns
+    {P: {"nn1": ..., "grid_trilinear": ...}}."""
+    from multiply_tpu_torch.ops import grid_cuda
+
+    P, by_persons = q.shape[0], {}
+    for Pm in M_PERSONS:
+        pick = [p % P for p in range(Pm)]
+        q_m, verts_m = q[pick].contiguous(), verts[pick].contiguous()
+        err_m, nd_m = check_nn1(q_m, verts_m, f"nn1 P={Pm} V=386")
+        args_m = tuple(x[pick].contiguous() for x in grid_args)
+        err_m1 = (grid_cuda.grid_trilinear_kernel(*args_m) - grid_cuda.grid_trilinear_plain(*args_m)).abs().max().item()
+        fused_m = grid_cuda.grid_trilinear_kernel(*args_m, group=S)
+        assert fused_m.shape == (Pm, args_m[1].shape[1] // S), f"grid_trilinear P={Pm} fused: shape {tuple(fused_m.shape)}"
+        err_mg = (fused_m - grid_cuda.grid_trilinear_plain(*args_m, group=S)).abs().max().item()
+        assert max(err_m1, err_mg) <= 1e-5, f"grid_trilinear P={Pm}: max abs error {max(err_m1, err_mg)} > 1e-5"
+        a_m, b_m = time_kernels(q_m, verts_m, args_m, S)
+        by_persons[Pm] = {"nn1": {**a_m, "max_abs_err": err_m, "tie_swaps": nd_m},
+                          "grid_trilinear": {**b_m, "max_abs_err": max(err_m1, err_mg)}}
+        log(f"P={Pm}: nn1 max|d2 err| {err_m:.3g} ({nd_m} tie swaps), {a_m['ms']:.4f} ms a call, device "
+            f"{a_m['device_ms']} ms, bound {a_m['bound_ms']:.5f} ms, plain {a_m['plain_ms']:.4f} ms; grid_trilinear "
+            f"max abs err {err_m1:.3g} (group=1), {err_mg:.3g} (group={S}), {b_m['ms']:.4f} ms a call, device "
+            f"{b_m['device_ms']} ms, bound {b_m['bound_ms']:.6f} ms, plain {b_m['plain_ms']:.4f} ms")
+    return by_persons
+
+
+def run_path_m1():
+    """M1: full-width training steps of the parity preset at P = 3 (both
+    composites, then pose-only steps with a `PoseLossBatch` of three
+    overlapping bodies) and at P = 1, each on its own synthetic scene with its
+    grids baked at res 64; the composite alone at P = 1, 2, 3. Returns what it
+    measured, by person count and form."""
+    import numpy as np
+    import torch
+
+    from multiply_tpu_torch.config import load_config
+    from multiply_tpu_torch.data.synthetic import make_scene
+    from multiply_tpu_torch.engine.train import MODE_POSE_ONLY, TrainStep
+    from multiply_tpu_torch.models.loss import LossConfig
+    from multiply_tpu_torch.models.renderer import MultiplyRenderer
+
+    dev, F_ = "cuda", 4
+    conf = load_config(os.path.join(ROOT, "confs", "model", "taichi01_model.yaml"))
+    out, launches, steps = {}, {}, {}
+    for P in M_PERSONS:
+        t0 = time.perf_counter()
+        scene = make_scene(num_frames=F_, num_persons=P, height=32, width=40, seed=SEED, device=dev)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        renderer = MultiplyRenderer(conf, num_persons=P, num_frames=F_, generator=gen, device=dev)
+        state = renderer.build_person_state(scene.servers, grid_res=64)
+        stepper = TrainStep(renderer, state, LossConfig(sam_start_epoch=0), learning_rate=conf.learning_rate)
+        torch.cuda.synchronize()
+        log(f"path M1 P={P}: scene + grid bake (res 64) {time.perf_counter() - t0:.1f} s")
+        for matmul in ((True, False) if P == 3 else (True,)):
+            name = f"p{P}" + ("" if matmul else "_sorted")
+            renderer.composite_matmul = matmul
+            ts = stepper.init_state(body_tables(scene, dev))
+            before = {k: p.detach().clone() for k, p in ts.params().items()}
+            rng = np.random.default_rng(SEED)
+            batches = [make_batch(scene, i % F_, rng, dev) for i in range(STEPS)]
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            ts, step_s, _ = run_steps(f"M1 {name}", stepper, ts, batches, gen)
+            launches[name], steps[name] = read_counts(), STEPS
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            assert launches[name] == {"nn1": 8 * STEPS, "grid_trilinear": STEPS}, f"M1 {name}: launches {launches[name]}"
+            unchanged = {k for k, p in ts.params().items() if torch.equal(p, before[k])}
+            assert unchanged <= {"net.fg_render.lin_pose.weight"}, f"M1 {name}: params unchanged: {unchanged}"
+            batch = make_batch(scene, STEPS % F_, rng, dev)
+            wall, busy, _, _, n_launch, _ = step_breakdown(lambda: stepper.step(ts, batch, generator=gen))
+            out[name] = {"median_ms": median(step_s[1:]) * 1e3, "min_ms": min(step_s[1:]) * 1e3,
+                         "max_ms": max(step_s[1:]) * 1e3, "first_ms": step_s[0] * 1e3, "peak_gib": peak,
+                         "wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall, "launches": n_launch}
+            log(f"path M1 {name}: median step {out[name]['median_ms']:.2f} ms over steps 1..{STEPS - 1}, range "
+                f"{out[name]['min_ms']:.2f}-{out[name]['max_ms']:.2f} ms, step 0 {out[name]['first_ms']:.1f} ms, "
+                f"peak {peak:.3f} GiB; profiled wall {wall:.2f} ms, device busy {busy:.2f} ms (idle share "
+                f"{1 - busy / wall:.3f}), {n_launch} kernel launches")
+        renderer.composite_matmul = True
+        if P == 3:
+            loss_p = LossConfig.from_config(conf.loss)._replace(sam_start_epoch=0)
+            stepper_p = TrainStep(renderer, state, loss_p, learning_rate=conf.learning_rate,
+                                  interp_samples=INTERP_SAMPLES)
+            ts_p = stepper_p.init_state(body_tables(scene, dev, overlapping(scene.transl)))
+            rng = np.random.default_rng(SEED)
+            frames = [i % F_ for i in range(STEPS_POSE)]
+            batches = [make_batch(scene, f, rng, dev, mode=MODE_POSE_ONLY) for f in frames]
+            pose_batches = [pose_loss_batch(scene, f, rng, dev) for f in frames]
+            before = {k: p.detach().clone() for k, p in ts_p.params().items()}
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            ts_p, step_s, logs = run_steps("M1 p3_pose", stepper_p, ts_p, batches, gen, pose_batches)
+            launches["p3_pose"], steps["p3_pose"] = read_counts(), STEPS_POSE
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            assert launches["p3_pose"] == {"nn1": 9 * STEPS_POSE, "grid_trilinear": STEPS_POSE}, launches["p3_pose"]
+            assert logs["pose_depth_order_loss"] > 0 and logs["pose_interpenetration_loss"] > 0, logs
+            moved = {k for k, p in ts_p.params().items() if not torch.equal(p, before[k])}
+            assert moved == {k for k in before if k.startswith("body.")}, f"M1 p3_pose moved {sorted(moved)}"
+            wall, busy, _, _, n_launch, _ = step_breakdown(
+                lambda: stepper_p.step(ts_p, batches[0], generator=gen, pose_batch=pose_batches[0]))
+            out["p3_pose"] = {"median_ms": median(step_s[1:]) * 1e3, "min_ms": min(step_s[1:]) * 1e3,
+                              "max_ms": max(step_s[1:]) * 1e3, "first_ms": step_s[0] * 1e3, "peak_gib": peak,
+                              "wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall, "launches": n_launch,
+                              "pose_terms": {k: logs[k] for k in logs if k.startswith("pose_")}}
+            log(f"path M1 p3_pose: median step {out['p3_pose']['median_ms']:.2f} ms over steps 1..{STEPS_POSE - 1}, "
+                f"range {out['p3_pose']['min_ms']:.2f}-{out['p3_pose']['max_ms']:.2f} ms, peak {peak:.3f} GiB; "
+                f"profiled wall {wall:.2f} ms, device busy {busy:.2f} ms (idle share {1 - busy / wall:.3f}), "
+                f"{n_launch} launches; last pose terms {out['p3_pose']['pose_terms']}")
+            del stepper_p, ts_p, pose_batches
+        cfg = renderer.sampler_cfg
+        S = cfg.N_samples + cfg.N_samples_extra + 1
+        if P == 3:
+            out["composite"] = {Pc: time_composite(renderer, Pc, S, dev, SEED + Pc) for Pc in M_COMPOSITE_PERSONS}
+            log(f"path M1 composite alone (forward + backward, {RAYS} rays x {S} intervals a person): "
+                f"{out['composite']}")
+        del renderer, state, stepper, ts, scene
+        torch.cuda.empty_cache()
+    out["launches"], out["steps"] = launches, steps
+    return out
+
+
+def run_path_m2():
+    """M2: the training entry's code on `confs/synthetic_p3.yaml` (three
+    persons, 4 frames of 48x64, 60 epochs: the mesh refresh at 20 and 40,
+    pose correction until 24, opt_depth at 30, instance masks + the SAM stage
+    and validation at 0 and 50) with the segmenter the entry picks, then one
+    frame of the test entry. Every step's loss finite, no update skipped, its
+    mode `_select_mode`'s, one `grid_trilinear` and the sampler's `nn1`
+    launches a step; the stages' files with P = 3 in their shapes and all
+    three persons' meshes; each kernel held to its plain version on each new
+    shape. Returns what it measured."""
+    import numpy as np
+    import torch
+
+    from multiply_tpu_torch.cli import test as cli_test
+    from multiply_tpu_torch.cli import train as cli_train
+    from multiply_tpu_torch.engine.sam_stage import PriorSegmenter
+    from multiply_tpu_torch.utils.io import read_png
+
+    dev = "cuda"
+    run_dir = os.path.join(ROOT, "outputs", "chip_smoke_path_m")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = ["--conf", os.path.join(ROOT, M_CONF), "--run_dir", run_dir, "--device", dev,
+            *(f"--set={s}" for s in M_SETS)]
+    t0 = time.perf_counter()
+    trainer, conf, ckpt_dir = cli_train.build_trainer(cli_train.parse_args(argv))
+    setup_s = time.perf_counter() - t0
+    m, d = conf.model, conf.dataset.train
+    epochs, n_frames, P = int(conf.max_epochs), len(trainer.seq), trainer.num_person
+    assert (P, n_frames, d.height, d.width, epochs) == (3, 4, 48, 64, 60), (P, n_frames, d.height, d.width, epochs)
+    assert list(m.depth_epoch) == [30] and m.depth_end and m.pose_correction_epoch == 24, "synthetic_p3 schedule"
+    assert isinstance(trainer.segmenter, PriorSegmenter), f"the entry picked {type(trainer.segmenter).__name__}"
+    nn1_a_step = m.ray_sampler.max_total_iters + 3  # the sampler's rounds, the render samples, two surface warps
+    log(f"path M2: set-up {setup_s:.1f} s (P={P}, {n_frames} frames of {d.height}x{d.width}, {d.num_sample} rays a "
+        f"step, SDF {len(m.implicit_network.dims)}x{m.implicit_network.dims[0]}, bf16 sampler {m.sampler_bf16}, "
+        f"grid res {m.cano_grid_res}, {epochs} epochs, opt_depth {trainer.it_per_loop} iterations a frame)")
+
+    held_shapes, failures, unhold = hold_kernels_on_path("M")
+    steps, depth, _ = instrument(trainer)
+    step_launches, counted = [], trainer.builder.step
+
+    def step_counted(ts, batch, **kw):
+        c0 = read_counts()
+        out = counted(ts, batch, **kw)
+        c1 = read_counts()
+        step_launches.append({k: c1[k] - c0[k] for k in c1})
+        return out
+
+    trainer.builder.step = step_counted
+    spent, undo = profile_stages(trainer)
+    grid_before = trainer.person_state.cano_grid["grid"].clone()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer.fit(epochs, ckpt_dir=ckpt_dir)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_counts()
+    undo()
+    peak = max(pk for _, pk, _ in spent.values())
+    assert len(steps) == epochs * n_frames, f"path M2 took {len(steps)} steps"
+    for ep, mode, expected, loss, skipped in steps:
+        assert mode == expected, f"path M2 epoch {ep}: step mode {mode}, _select_mode gives {expected}"
+        assert math.isfinite(loss) and skipped == 0.0, f"path M2 epoch {ep}: loss {loss}, update skipped {skipped}"
+    bad = [c for c in step_launches if c != {"nn1": nn1_a_step, "grid_trilinear": 1}]
+    assert not bad, f"path M2: steps launched {bad[:3]} (expected nn1 {nn1_a_step}, grid_trilinear 1)"
+    assert len(depth) == n_frames * trainer.it_per_loop and all(math.isfinite(v) for v in depth), depth
+    grid_after = trainer.person_state.cano_grid["grid"]
+    assert trainer.builder.state.cano_grid["grid"] is grid_after, "the step does not read the refreshed grid"
+    for p in range(P):
+        assert not torch.equal(grid_before[p], grid_after[p]), f"mesh refresh left person {p}'s grid as it was"
+    for ep in M_STAGE_EPOCHS["instance_mask"]:
+        stage = os.path.join(run_dir, "stage_instance_mask", f"{ep:05d}")
+        masks = np.load(os.path.join(stage, "all_person_smpl_mask.npy"))
+        kps = np.load(os.path.join(stage, "2d_keypoint.npy"))
+        sam = np.load(os.path.join(run_dir, "stage_sam_mask", f"{ep:05d}", "sam_opt_mask.npy"))
+        assert masks.shape == sam.shape == (n_frames, P, d.height, d.width), (masks.shape, sam.shape)
+        assert kps.shape == (n_frames, P, 27, 2) and np.isfinite(sam).all(), kps.shape
+        assert all(masks[:, p].any() for p in range(P)), f"epoch {ep}: a person has no instance-mask pixel"
+    expected_files = [
+        *(f"val/epoch_{ep:05d}_person_{p}.ply" for ep in M_STAGE_EPOCHS["validation"] for p in range(P)),
+        *(f"val/epoch_{ep:05d}.png" for ep in M_STAGE_EPOCHS["validation"]),
+        *(f"stage_depth_map/00030/{it:05d}/{kind}/{kind}_{f:04d}.png"
+          for it in (0, trainer.it_per_loop - 1) for kind in ("front", "gt") for f in range(n_frames)),
+        "checkpoints/last",
+    ]
+    missing = [f for f in expected_files if not os.path.exists(os.path.join(run_dir, f))]
+    assert not missing, f"path M2 did not write {missing}"
+    metrics = read_metrics(run_dir)
+    epoch_s = {r["epoch"]: r["epoch_seconds"] for r in metrics if "epoch_seconds" in r}
+    stage_s = {f"{k[:-8]}@{r['epoch']}": r[k] for r in metrics for k in r if k.endswith("_seconds") and k != "epoch_seconds"}
+    want = {f"{name}@{ep}" for name, eps in M_STAGE_EPOCHS.items() for ep in eps}
+    assert want <= set(stage_s), f"path M2: stages not run {sorted(want - set(stage_s))}"
+    psnr = [r["val_psnr"] for r in metrics if "val_psnr" in r]
+    assert len(psnr) == 2 and all(math.isfinite(v) for v in psnr), f"validation PSNR {psnr}"
+    staged = {int(k.split("@")[1]) for k in stage_s}
+    plain = [s for ep, s in epoch_s.items() if ep not in staged and ep != 0]
+
+    t0 = time.perf_counter()
+    test_dir = cli_test.main([*argv, "--frames", "1"])
+    test_s = time.perf_counter() - t0
+    img = read_png(os.path.join(test_dir, "test_rendering", "0000.png"))
+    assert img.shape == (d.height, 2 * d.width, 3), img.shape
+    unhold()
+    assert not failures, f"path M: a kernel disagrees with its plain version: {failures}"
+    held_err = {k: max((e for key, e in held_shapes.items() if key[0] == k), default=None)
+                for k in ("nn1", "grid_trilinear")}
+    assert all(e is not None for e in held_err.values()), f"path M held no call of {held_err}"
+    modes = {mode: sum(1 for s in steps if s[1] == mode) for mode in sorted({s[1] for s in steps})}
+    out = {"setup_s": setup_s, "fit_s": fit_s, "epoch_median_s": median(plain), "epoch_min_s": min(plain),
+           "epoch_max_s": max(plain), "stage_s": stage_s, "test_s": test_s, "peak_gib": peak, "val_psnr": psnr,
+           "launches": launches, "steps": len(steps), "modes": modes, "nn1_a_step": nn1_a_step,
+           "held": held_shapes, "held_err": held_err}
+    log(f"path M2: {epochs} epochs in {fit_s:.1f} s, median epoch without a stage {out['epoch_median_s']:.3f} s "
+        f"(range {out['epoch_min_s']:.3f}-{out['epoch_max_s']:.3f}, epoch 0 {epoch_s[0]:.3f}), stages (seconds @ "
+        f"epoch) { {k: round(v, 3) for k, v in stage_s.items()} }, steps by mode {modes}, launches over the fit "
+        f"{launches} ({nn1_a_step} nn1 and 1 grid_trilinear in each of {len(steps)} steps), peak memory "
+        f"{peak:.3f} GiB, validation PSNR {psnr}; test entry, 1 frame, {test_s:.1f} s")
+    log(f"path M2: each kernel held to its plain version on the first call of each shape, max abs error by shape: "
+        f"{ {' '.join(map(str, k)): float(f'{e:.3g}') for k, e in held_shapes.items()} }")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2613,6 +2927,11 @@ def main() -> int:
             lambda: F.grid_sample(vol, unit.flip(-1)[:, None, None], mode="bilinear", padding_mode="border",
                                   align_corners=True).reshape(P, RAYS, S).min(-1)
         )
+        # the per-point form's yardsticks: its plain version, and grid_sample alone
+        t_b1_plain = cuda_time_ms(lambda: grid_cuda.grid_trilinear_plain(*grid_args))
+        t_b1_lib = cuda_time_ms(lambda: F.grid_sample(vol, unit.flip(-1)[:, None, None], mode="bilinear",
+                                                      padding_mode="border", align_corners=True))
+        by_persons = kernels_by_persons(q, verts, grid_args, S)
         (host_a, host_a_best), (host_b, host_b_best) = host_time_us(run_a), host_time_us(run_b)
         dev_a, n_a = device_time_ms(run_a, "nn1_kernel")
         dev_a2, _ = device_time_ms(run_a2, "nn1_kernel")
@@ -2816,18 +3135,38 @@ def main() -> int:
     torch.cuda.empty_cache()
     path_l = run_path_l()
 
+    # ---------------- 16. path M: one person and three persons ----------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    path_m1 = run_path_m1()
+    m1_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    path_m2 = run_path_m2()
+    path_m_s = time.perf_counter() - t0
+    comp = path_m1["composite"]
+    log(f"path M: {path_m_s:.1f} s (M1 {m1_s:.1f} s); median step P=3 | P=2 (phase 5) | P=1: "
+        f"{path_m1['p3']['median_ms']:.2f} | {parity['median_ms']:.2f} | {path_m1['p1']['median_ms']:.2f} ms, P=3 "
+        f"sorted composite {path_m1['p3_sorted']['median_ms']:.2f} ms; the composite alone (forward + backward), "
+        f"device ms P=1 | 2 | 3, pairwise: {' | '.join(str(comp[p]['pairwise']['device_ms']) for p in M_COMPOSITE_PERSONS)}, "
+        f"sorted: {' | '.join(str(comp[p]['sorted']['device_ms']) for p in M_COMPOSITE_PERSONS)}")
+
     launches_by_path = {"parity": launches, "fast": launches_f, "pose": launches_p,
                         "trainer": path_t["launches_a"], "trainer_pose": path_t["launches_b"],
                         "sam": path_s["launches"], "preprocessed": path_p["launches"],
                         "vitpose_jpeg": path_v["launches"], "sharded_rank0": path_d["launches"],
-                        "examples": path_l["launches"]}
+                        "examples": path_l["launches"], "persons_p3": path_m1["launches"]["p3"],
+                        "persons_p3_sorted": path_m1["launches"]["p3_sorted"],
+                        "persons_p3_pose": path_m1["launches"]["p3_pose"], "persons_p1": path_m1["launches"]["p1"],
+                        "persons_program": path_m2["launches"]}
     steps_by_path = {"parity": STEPS, "fast": STEPS_FAST, "pose": STEPS_POSE,
                      "trainer": path_t["steps_a"], "trainer_pose": path_t["steps_b"],
                      "sam": path_s["steps"], "preprocessed": path_p["steps"], "vitpose_jpeg": 0,
-                     "sharded_rank0": D_STEPS, "examples": path_l["steps"]}
+                     "sharded_rank0": D_STEPS, "examples": path_l["steps"], **{
+                         f"persons_{k}": n for k, n in path_m1["steps"].items()}, "persons_program": path_m2["steps"]}
     # the trainer's counts hold its stages' launches too: per step only for the step paths
     per_step = {path: {k: n / steps_by_path[path] for k, n in launches_by_path[path].items()}
-                for path in ("parity", "fast", "pose", "sharded_rank0")}
+                for path in ("parity", "fast", "pose", "sharded_rank0", "persons_p3", "persons_p3_sorted",
+                             "persons_p3_pose", "persons_p1")}
     log(f"kernel launches by path: {launches_by_path} over steps {steps_by_path}")
 
     kernels = [
@@ -2839,9 +3178,17 @@ def main() -> int:
             "launches_by_path": {k: v["nn1"] for k, v in launches_by_path.items()}, "steps_by_path": steps_by_path,
             "launches_per_step_by_path": {k: v["nn1"] for k, v in per_step.items()},
             "max_abs_err": max(err_a, err_a3, err_a4, path_t["held_err"]["nn1"], path_p["held_err"]["nn1"],
-                               path_d["held_err"]["nn1"], path_l["held_err"]["nn1"]),
+                               path_d["held_err"]["nn1"], path_l["held_err"]["nn1"], path_m2["held_err"]["nn1"],
+                               *(v["nn1"]["max_abs_err"] for v in by_persons.values())),
             "max_err": max(err_a, err_a3, err_a4, path_t["held_err"]["nn1"], path_p["held_err"]["nn1"],
-                           path_d["held_err"]["nn1"], path_l["held_err"]["nn1"]),
+                           path_d["held_err"]["nn1"], path_l["held_err"]["nn1"], path_m2["held_err"]["nn1"],
+                           *(v["nn1"]["max_abs_err"] for v in by_persons.values())),
+            "path_m": {**{f"p{Pm}": {**v["nn1"], "launches": path_m1["launches"][f"p{Pm}"]["nn1"]}
+                          for Pm, v in by_persons.items()},
+                       "launches_p3_sorted": path_m1["launches"]["p3_sorted"]["nn1"],
+                       "launches_p3_pose": path_m1["launches"]["p3_pose"]["nn1"],
+                       "launches_program": path_m2["launches"]["nn1"], "max_abs_err_program": path_m2["held_err"]["nn1"],
+                       "shapes_held_program": sum(1 for k in path_m2["held"] if k[0] == "nn1")},
             "max_abs_err_path_t": path_t["held_err"]["nn1"],
             "shapes_held_path_t": sum(1 for k in path_t["held"] if k[0] == "nn1"),
             "max_abs_err_path_p": path_p["held_err"]["nn1"],
@@ -2870,9 +3217,19 @@ def main() -> int:
             "launches_per_step_by_path": {k: v["grid_trilinear"] for k, v in per_step.items()},
             "max_abs_err": max(err_b, err_b1, path_t["held_err"]["grid_trilinear"],
                                path_p["held_err"]["grid_trilinear"], path_d["held_err"]["grid_trilinear"],
-                               path_l["held_err"]["grid_trilinear"]),
+                               path_l["held_err"]["grid_trilinear"], path_m2["held_err"]["grid_trilinear"],
+                               *(v["grid_trilinear"]["max_abs_err"] for v in by_persons.values())),
             "max_err": max(err_b, err_b1, path_t["held_err"]["grid_trilinear"], path_p["held_err"]["grid_trilinear"],
-                           path_d["held_err"]["grid_trilinear"], path_l["held_err"]["grid_trilinear"]),
+                           path_d["held_err"]["grid_trilinear"], path_l["held_err"]["grid_trilinear"],
+                           path_m2["held_err"]["grid_trilinear"],
+                           *(v["grid_trilinear"]["max_abs_err"] for v in by_persons.values())),
+            "path_m": {**{f"p{Pm}": {**v["grid_trilinear"], "launches": path_m1["launches"][f"p{Pm}"]["grid_trilinear"]}
+                          for Pm, v in by_persons.items()},
+                       "launches_p3_sorted": path_m1["launches"]["p3_sorted"]["grid_trilinear"],
+                       "launches_p3_pose": path_m1["launches"]["p3_pose"]["grid_trilinear"],
+                       "launches_program": path_m2["launches"]["grid_trilinear"],
+                       "max_abs_err_program": path_m2["held_err"]["grid_trilinear"],
+                       "shapes_held_program": sum(1 for k in path_m2["held"] if k[0] == "grid_trilinear")},
             "max_abs_err_path_t": path_t["held_err"]["grid_trilinear"],
             "shapes_held_path_t": sum(1 for k in path_t["held"] if k[0] == "grid_trilinear"),
             "max_abs_err_path_p": path_p["held_err"]["grid_trilinear"],
@@ -2889,7 +3246,10 @@ def main() -> int:
             "bound_by": "operations" if b_ops / PEAK_FP32_FLOPS > b_bytes / PEAK_BYTES else "bytes",
             "library_ms": t_b_lib, "device_ms": dev_b, "host_us": host_b, "host_us_best": host_b_best,
             "shape": f"P={P} N={n_render} res={res} group={S}",
-            "ms_group1": t_b1, "device_ms_group1": dev_b1,
+            "ms_group1": t_b1, "device_ms_group1": dev_b1, "plain_ms_group1": t_b1_plain,
+            "library_ms_group1": t_b1_lib, "bound_ms_group1": max(
+                GRID_OPS_PER_POINT * P * n_render / PEAK_FP32_FLOPS,
+                P * (n_render * 16 + res**3 * 4 + 24) / PEAK_BYTES) * 1e3,
         },
     ]
     log(f"chip_smoke: whole run {time.perf_counter() - t_script:.1f} s after the CUDA check ({smi})")

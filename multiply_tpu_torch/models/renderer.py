@@ -341,10 +341,37 @@ class MultiplyRenderer(nn.Module):
         ends = torch.cat([z[..., 1:], z_max[..., None]], dim=-1)
         delta = ends - z
         sigma = laplace_density(pout["sdf"], beta) * pout["hit"][..., None]
-        fe = sigma * delta  # (P, R, S)
-        rgb = pout["rgb"].reshape(P, R, S, 3)
-        normals = pout["normals"].reshape(P, R, S, 3)
+        comp = self.composite(sigma * delta, ends, pout["rgb"].reshape(P, R, S, 3),
+                              pout["normals"].reshape(P, R, S, 3))
 
+        # ---------------- background (NeRF++ inverse sphere) ----------------
+        frame_latent = self.frame_latent[inputs.frame_idx]
+        z_bg = torch.flip(self._bg_z(R, noise["bg_u"] if train else None), dims=(-1,))
+        bg_rgb_values = self._render_background(ray_o, ray_d, z_bg, frame_latent)
+
+        fg_rgb_values, bg_transmittance = comp["fg_rgb_values"], comp["bg_transmittance"]
+        out: dict[str, Any] = {
+            "rgb_values": fg_rgb_values + bg_transmittance[:, None] * bg_rgb_values,
+            "fg_rgb_values": fg_rgb_values + bg_transmittance[:, None],
+            "normal_values": comp["normal_values"],
+            "acc_map": comp["acc_map"],
+            "acc_person_list": comp["acc_person"],
+            "bg_transmittance": bg_transmittance,
+            "weights": comp["weights"],
+            "hit": pout["hit"],
+        }
+        if train:
+            out.update(self._training_extras(state, inputs, pout, cond_vec, noise))
+        return out
+
+    # -- helpers -------------------------------------------------------
+
+    def composite(self, fe: torch.Tensor, ends: torch.Tensor, rgb: torch.Tensor, normals: torch.Tensor) -> dict:
+        """The persons' intervals composited along each ray: free energy `fe`
+        and far ends `ends` (P, R, S), colours and normals (P, R, S, 3).
+        Returns the foreground colour and normal, `acc_map`, `acc_person`
+        (R, P), the background's transmittance and the weights (R, P * S)."""
+        P, R, S = fe.shape
         if self.composite_matmul:
             # pairwise attenuation: weight of interval i of person p = alpha_i *
             # exp(-(own exclusive prefix free energy + sum over q != p of fe_q on
@@ -392,26 +419,8 @@ class MultiplyRenderer(nn.Module):
             person = torch.arange(P, device=fe.device)
             acc_person = (weights[..., None] * (pid_s[..., None] == person)).sum(1)  # (R, P)
 
-        # ---------------- background (NeRF++ inverse sphere) ----------------
-        frame_latent = self.frame_latent[inputs.frame_idx]
-        z_bg = torch.flip(self._bg_z(R, noise["bg_u"] if train else None), dims=(-1,))
-        bg_rgb_values = self._render_background(ray_o, ray_d, z_bg, frame_latent)
-
-        out: dict[str, Any] = {
-            "rgb_values": fg_rgb_values + bg_transmittance[:, None] * bg_rgb_values,
-            "fg_rgb_values": fg_rgb_values + bg_transmittance[:, None],
-            "normal_values": normal_values,
-            "acc_map": acc_map,
-            "acc_person_list": acc_person,
-            "bg_transmittance": bg_transmittance,
-            "weights": weights,
-            "hit": pout["hit"],
-        }
-        if train:
-            out.update(self._training_extras(state, inputs, pout, cond_vec, noise))
-        return out
-
-    # -- helpers -------------------------------------------------------
+        return {"fg_rgb_values": fg_rgb_values, "normal_values": normal_values, "acc_map": acc_map,
+                "acc_person": acc_person, "bg_transmittance": bg_transmittance, "weights": weights}
 
     def _bg_z(self, R: int, u: torch.Tensor | None) -> torch.Tensor:
         dev = self.beta.device

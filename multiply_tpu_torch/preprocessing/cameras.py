@@ -28,12 +28,12 @@ SOLVEPNP_EPNP, reprojectionError=20, iterationsCount=100)` does in OpenCV
 OpenCV draws its minimal sets from its own generator; the port's come from
 `np.random.default_rng(seed)`, so only the final refit can be compared: with
 all correspondences inliers, or with gross outliers that no reasonable model
-takes in, both refit on the same set. There the two agree to 1e-9 on 5 of
-the 12 seventeen-joint bodies of `tests/test_torch_preprocessing.py` in
-each case (1 px of noise, and three gross outliers); on the other 7 OpenCV
-5.0's EPnP returns a translation 7e-5 to 4.2e-3 relative away from this one,
-which is the Gauss-Newton fixed point of the 6 x 10 distance system. The
-cause is not found; the test holds the agreement as measured.
+takes in, both refit on the same set, and there they agree to 1e-13 relative
+(`tests/test_torch_preprocessing.py`). That needs OpenCV's own SVD of the 3 x 3
+PW0^T PW0 (`jacobi_svd`): its axes' signs choose the control points, and
+mirrored ones give another answer once the pixels are noisy. The signs of the
+other two SVDs cancel (the betas take the null vectors' signs; U V^T is one
+rotation whatever the pairs' signs).
 """
 
 from __future__ import annotations
@@ -48,10 +48,59 @@ INVALID_TRANS = np.ones(3) * -1
 MODEL_POINTS = 5
 
 
+def jacobi_svd(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(singular values, U^T) of a small square float64 matrix by OpenCV's
+    one-sided Jacobi SVD (`JacobiSVDImpl_` in its `core/src/lapack.cpp`, the
+    double case), in its order and with its signs.
+
+    The columns of `a` are rotated pairwise until orthogonal, each rotation
+    taking the sign its formula gives; the singular values are the columns'
+    norms, sorted by OpenCV's selection sort, and U^T's rows the normalised
+    columns. A zero singular value leaves its row zero, where OpenCV draws a
+    random vector orthogonal to the others."""
+    at = np.array(a, np.float64).T.copy()
+    n = len(at)
+    eps = 10 * np.finfo(np.float64).eps
+    w = (at * at).sum(1)
+    for _ in range(max(n, 30)):
+        changed = False
+        for i in range(n - 1):
+            for j in range(i + 1, n):
+                p = float(at[i] @ at[j])
+                if abs(p) <= eps * math.sqrt(w[i] * w[j]):
+                    continue
+                p *= 2
+                beta = w[i] - w[j]
+                gamma = math.hypot(p, beta)
+                if beta < 0:
+                    s = math.sqrt((gamma - beta) * 0.5 / gamma)
+                    c = p / (gamma * s * 2)
+                else:
+                    c = math.sqrt((gamma + beta) / (gamma * 2))
+                    s = p / (gamma * c * 2)
+                at[i], at[j] = c * at[i] + s * at[j], -s * at[i] + c * at[j]
+                w[i], w[j] = at[i] @ at[i], at[j] @ at[j]
+                changed = True
+        if not changed:
+            break
+    w = np.sqrt((at * at).sum(1))
+    for i in range(n - 1):
+        j = i
+        for k in range(i + 1, n):
+            if w[j] < w[k]:
+                j = k
+        w[[i, j]], at[[i, j]] = w[[j, i]], at[[j, i]]
+    inv = np.divide(1.0, w, out=np.zeros_like(w), where=w > np.finfo(np.float64).tiny)
+    return w, at * inv[:, None]
+
+
 def _control_points(pws: np.ndarray) -> np.ndarray:
+    """The centroid and the principal axes scaled by sqrt(eigenvalue / n), the
+    axes with the signs of OpenCV's SVD of PW0^T PW0: with noisy pixels,
+    mirrored control points give another EPnP answer."""
     c0 = pws.mean(0)
     centered = pws - c0
-    _, d, ut = np.linalg.svd(centered.T @ centered)
+    d, ut = jacobi_svd(centered.T @ centered)
     k = np.sqrt(d / len(pws))
     return np.concatenate([c0[None], c0[None] + k[:, None] * ut], axis=0)  # (4, 3)
 

@@ -123,32 +123,33 @@ def tiny_conf(**updates) -> dict:
     return conf
 
 
-@functools.lru_cache(maxsize=1)
-def tiny_scene():
+@functools.lru_cache(maxsize=3)
+def tiny_scene(num_persons: int = 2):
     from multiply_tpu.data.synthetic import make_scene
 
-    return make_scene(num_frames=2, num_persons=2, height=24, width=32)
+    return make_scene(num_frames=2, num_persons=num_persons, height=24, width=32)
 
 
-@functools.lru_cache(maxsize=1)
-def tiny_person_state():
+@functools.lru_cache(maxsize=3)
+def tiny_person_state(num_persons: int = 2):
     """The JAX per-person state of the tiny scene (it does not depend on the
     model config), with uneven surface-sampling logits."""
     from multiply_tpu.config import Config as JaxConfig
     from multiply_tpu.models.renderer import MultiplyRenderer as JaxRenderer
 
-    scene = tiny_scene()
+    scene = tiny_scene(num_persons)
     logits = [np.linspace(-1.0, 1.0, s.verts_c.shape[0]).astype(np.float32) * (p + 1)
               for p, s in enumerate(scene.servers)]
-    jr = JaxRenderer(JaxConfig(tiny_conf()), num_persons=len(scene.servers), num_frames=2)
+    jr = JaxRenderer(JaxConfig(tiny_conf()), num_persons=num_persons, num_frames=2)
     return jr.build_person_state(scene.servers, surface_logits=logits, grid_res=8)
 
 
 def tiny_program(conf: dict, loss_kw: dict | None = None, rays: int = 24, jitter: float = 0.03,
-                 interp_samples: int = 64):
-    """(JAX objects, port objects) of a tiny training program built from
-    `conf` on both sides, the JAX weights (jittered so that no path stays at
-    its silent initial value) carried across by `convert.load_params`."""
+                 interp_samples: int = 64, num_persons: int = 2):
+    """(JAX objects, port objects) of a tiny training program of `num_persons`
+    persons built from `conf` on both sides, the JAX weights (jittered so that
+    no path stays at its silent initial value) carried across by
+    `convert.load_params`."""
     from multiply_tpu.body.params import BodyParamTable as JaxTable
     from multiply_tpu.config import Config as JaxConfig
     from multiply_tpu.data.synthetic import sample_rays
@@ -166,10 +167,10 @@ def tiny_program(conf: dict, loss_kw: dict | None = None, rays: int = 24, jitter
     import copy
 
     loss_kw = dict(sam_start_epoch=0, **(loss_kw or {}))
-    scene = tiny_scene()
+    scene = tiny_scene(num_persons)
     P, F = len(scene.servers), scene.images.shape[0]
     jr = JaxRenderer(JaxConfig(copy.deepcopy(conf)), num_persons=P, num_frames=F)
-    jstate = tiny_person_state()
+    jstate = tiny_person_state(num_persons)
     jb = JaxTrainStep(jr, jstate, JaxLossConfig(**loss_kw), interp_samples=interp_samples)
     tables = [
         JaxTable.create(F, betas=scene.betas[p], global_orient=scene.poses[:, p, :3],
@@ -209,6 +210,30 @@ def tiny_program(conf: dict, loss_kw: dict | None = None, rays: int = 24, jitter
     return (jr, jstate, jb, jts, jbatch), (renderer, state, stepper, ts, batch)
 
 
+def jax_step_with_grads(jb, jts, jbatch, key, jpose=None):
+    """JAX's `TrainStep.step` in one compiled program: (its forward logs, the
+    gradients it hands its joint Adam (every leaf, whatever the mode), the new
+    train state), as numpy. The gradients are taken from inside the step, so
+    the forward and backward are traced and compiled once."""
+    import multiply_tpu.engine.train as jtrain
+
+    adam_update, seen = jtrain.adam_update, []
+
+    def spy(grads, *args, **kw):
+        seen.append(grads)
+        return adam_update(grads, *args, **kw)
+
+    @jax.jit
+    def jax_step(t, b, k, pb):
+        seen.clear()
+        new_t, logs = jb.step(t, b, k, pose_batch=pb)
+        return {n: v for n, v in logs.items() if n not in ("lr", "update_skipped")}, seen[0], new_t
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtrain, "adam_update", spy)
+        return npify(jax_step(jts, jbatch, key, jpose))
+
+
 def assert_step_matches(jax_side, port_side, epoch: int, key, jpose=None, pose=None, mode: int = 0,
                         loss_rtol: float = 2e-5, grad_rel: float = 1e-2):
     """One training step on both sides from the same weights and noise: every
@@ -230,13 +255,7 @@ def assert_step_matches(jax_side, port_side, epoch: int, key, jpose=None, pose=N
     ts, batch = copy.deepcopy(ts), copy.copy(batch)
     ts.epoch, batch.mode = epoch, mode
 
-    @jax.jit
-    def jax_step(t, b, k, pb):
-        (_, logs), grads = jax.value_and_grad(jb._forward_loss, has_aux=True)(t.params, jstate, b, t.epoch, k, pb)
-        new_t, _ = jb.step(t, b, k, pose_batch=pb)
-        return logs, grads, new_t
-
-    jlogs, jgrads, jnew = npify(jax_step(jts, jbatch, key, jpose))
+    jlogs, jgrads, jnew = jax_step_with_grads(jb, jts, jbatch, key, jpose)
     noise = jax_noise(
         key, jr, batch.uv.shape[0], state.server.verts_c.shape[1], np.asarray(jstate.surface_sample_logits),
         None if pose is None else pose.verts_c.shape[1], stepper.interp_samples,
