@@ -39,14 +39,23 @@ RENDEZVOUS_FILE = ".rendezvous"  # under run_dir, for `--devices N`
 
 
 def parse_overrides(sets: list[str]) -> dict:
-    """["a.b=1", ...] -> {"a": {"b": 1}}, each value YAML-parsed."""
+    """["a.b=1", ...] -> {"a": {"b": 1}}, each value YAML-parsed. Raises a
+    ValueError naming the argument when it lacks "=", when its key path has
+    an empty part, or when it sets a key under one that an earlier argument
+    gave a value that is not a mapping."""
     overrides: dict = {}
     for kv in sets:
-        key, _, val = kv.partition("=")
-        node = overrides
+        key, eq, val = kv.partition("=")
+        if not eq:
+            raise ValueError(f"--set {kv!r}: expected key.path=value")
         *path, last = key.strip().split(".")
+        if not all(part.strip() for part in (*path, last)):
+            raise ValueError(f"--set {kv!r}: the key path {key.strip()!r} has an empty part")
+        node = overrides
         for p in path:
             node = node.setdefault(p, {})
+            if not isinstance(node, dict):
+                raise ValueError(f"--set {kv!r}: {p!r} already has the value {node!r}, not a mapping")
         node[last] = yaml.safe_load(val)
     return overrides
 

@@ -1,14 +1,20 @@
-// Huffman-coded 8-bit JPEG decoder on the host, pixel for pixel as libjpeg-turbo decodes a file with
-// the defaults that `cv2.imread(path, cv2.IMREAD_COLOR)` leaves it: the integer ISLOW IDCT (jidctint.c),
-// fancy upsampling (jdsample.c: h2v1, h1v2 and h2v2 with edge replication at the component's own
-// width and height; plain replication for other integral ratios, and for h2 ratios when the
-// component is at most 2 samples wide), the fixed-point YCbCr -> RGB tables of jdcolor.c, grey
-// repeated in three channels, and the EXIF orientation applied as OpenCV applies it.
+// 8-bit JPEG decoder on the host, pixel for pixel as libjpeg-turbo 3.1 decodes a file with the defaults
+// that `cv2.imread(path, cv2.IMREAD_COLOR)` leaves it: the integer ISLOW IDCT (jidctint.c), fancy
+// upsampling (jdsample.c: h2v1, h1v2 and h2v2 with edge replication at the component's own width and
+// height; plain replication for other integral ratios, and for h2 ratios when the component is at
+// most 2 samples wide), the fixed-point YCbCr -> RGB tables of jdcolor.c, grey repeated in three
+// channels, YCCK -> CMYK as jdcolor.c and CMYK -> RGB as OpenCV's icvCvt_CMYK2BGR (Adobe's inverted
+// inks), and the EXIF orientation applied as OpenCV applies it.
 //
-// Takes baseline and extended sequential (SOF0/SOF1) and progressive (SOF2) files: interleaved and
-// single-component scans, restart intervals, spectral selection, successive approximation and EOB
-// runs. Refuses arithmetic coding, 12-bit samples, lossless and hierarchical coding, and 4-component
-// (CMYK/YCCK) files, each with its name.
+// Takes sequential (SOF0/SOF1) and progressive (SOF2) files with Huffman coding, the same with
+// arithmetic coding (SOF9/SOF10: the T.81 Annex D QM decoder of jdarith.c, its conditioning tables
+// set by DAC), and lossless files (SOF3: the predictors of Annex H, samples of 2-8 bits scaled by the
+// point transform, as jdlossls.c gives them to an 8-bit reader): interleaved and single-component
+// scans, restart intervals, spectral selection, successive approximation and EOB runs; 1, 3 or 4
+// components (grey, YCbCr or RGB, CMYK or YCCK). Refuses, with its name, each mode that cv2.imread
+// reads as None: 12-bit samples (OpenCV reads through libjpeg's 8-bit interface), lossless samples
+// of more than 8 bits, lossless files that need a colour conversion (libjpeg refuses one in lossless
+// mode), lossless arithmetic coding (SOF11) and hierarchical coding.
 //
 // C interface, loaded with ctypes by `multiply_tpu_torch/utils/jpeg.py`:
 //   jpeg_dims(data, n, dims[2], err, errlen)        -> 0, dims = (height, width) after orientation
@@ -38,14 +44,51 @@ struct Failure {
 };
 
 [[noreturn]] void malformed(const std::string& msg) { throw Failure{1, "malformed JPEG: " + msg}; }
-[[noreturn]] void refused(const std::string& mode) {
-  throw Failure{2, mode + " JPEG is not supported by the port's decoder (ROADMAP.md, queue 1)"};
+[[noreturn]] void unread(const std::string& mode) {
+  throw Failure{2, mode + " JPEG: OpenCV's cv2.imread reads none either (it returns None), so the port refuses it"};
 }
+
+// T.81 Table D.2 as jaricom.c packs it: Qe << 16 | next index after an MPS << 8 | switch << 7 | after an LPS;
+// entry 113 is the fixed estimate of one half
+const uint32_t kQe[114] = {
+#define V(qe, lps, mps, sw) ((uint32_t)(qe) << 16 | (mps) << 8 | (sw) << 7 | (lps))
+    V(0x5a1d, 1, 1, 1),     V(0x2586, 14, 2, 0),    V(0x1114, 16, 3, 0),    V(0x080b, 18, 4, 0),
+    V(0x03d8, 20, 5, 0),    V(0x01da, 23, 6, 0),    V(0x00e5, 25, 7, 0),    V(0x006f, 28, 8, 0),
+    V(0x0036, 30, 9, 0),    V(0x001a, 33, 10, 0),   V(0x000d, 35, 11, 0),   V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0),   V(0x0001, 12, 13, 0),   V(0x5a7f, 15, 15, 1),   V(0x3f25, 36, 16, 0),
+    V(0x2cf2, 38, 17, 0),   V(0x207c, 39, 18, 0),   V(0x17b9, 40, 19, 0),   V(0x1182, 42, 20, 0),
+    V(0x0cef, 43, 21, 0),   V(0x09a1, 45, 22, 0),   V(0x072f, 46, 23, 0),   V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0),   V(0x0303, 51, 26, 0),   V(0x0240, 52, 27, 0),   V(0x01b1, 54, 28, 0),
+    V(0x0144, 56, 29, 0),   V(0x00f5, 57, 30, 0),   V(0x00b7, 59, 31, 0),   V(0x008a, 60, 32, 0),
+    V(0x0068, 62, 33, 0),   V(0x004e, 63, 34, 0),   V(0x003b, 32, 35, 0),   V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1),   V(0x484c, 64, 38, 0),   V(0x3a0d, 65, 39, 0),   V(0x2ef1, 67, 40, 0),
+    V(0x261f, 68, 41, 0),   V(0x1f33, 69, 42, 0),   V(0x19a8, 70, 43, 0),   V(0x1518, 72, 44, 0),
+    V(0x1177, 73, 45, 0),   V(0x0e74, 74, 46, 0),   V(0x0bfb, 75, 47, 0),   V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0),   V(0x0706, 79, 50, 0),   V(0x05cd, 48, 51, 0),   V(0x04de, 50, 52, 0),
+    V(0x040f, 50, 53, 0),   V(0x0363, 51, 54, 0),   V(0x02d4, 52, 55, 0),   V(0x025c, 53, 56, 0),
+    V(0x01f8, 54, 57, 0),   V(0x01a4, 55, 58, 0),   V(0x0160, 56, 59, 0),   V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0),   V(0x00cb, 59, 62, 0),   V(0x00ab, 61, 63, 0),   V(0x008f, 61, 32, 0),
+    V(0x5b12, 65, 65, 1),   V(0x4d04, 80, 66, 0),   V(0x412c, 81, 67, 0),   V(0x37d8, 82, 68, 0),
+    V(0x2fe8, 83, 69, 0),   V(0x293c, 84, 70, 0),   V(0x2379, 86, 71, 0),   V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0),   V(0x174e, 72, 74, 0),   V(0x1424, 72, 75, 0),   V(0x119c, 74, 76, 0),
+    V(0x0f6b, 74, 77, 0),   V(0x0d51, 75, 78, 0),   V(0x0bb6, 77, 79, 0),   V(0x0a40, 77, 48, 0),
+    V(0x5832, 80, 81, 1),   V(0x4d1c, 88, 82, 0),   V(0x438e, 89, 83, 0),   V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0),   V(0x2eae, 92, 86, 0),   V(0x299a, 93, 87, 0),   V(0x2516, 86, 71, 0),
+    V(0x5570, 88, 89, 1),   V(0x4ca9, 95, 90, 0),   V(0x44d9, 96, 91, 0),   V(0x3e22, 97, 92, 0),
+    V(0x3824, 99, 93, 0),   V(0x32b4, 99, 94, 0),   V(0x2e17, 93, 86, 0),   V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0),  V(0x47e5, 102, 98, 0),  V(0x41cf, 103, 99, 0),  V(0x3c3d, 104, 100, 0),
+    V(0x375e, 99, 93, 0),   V(0x5231, 105, 102, 0), V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0),
+    V(0x415e, 103, 99, 0),  V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1), V(0x5522, 112, 109, 0),
+    V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0)
+#undef V
+};
 
 constexpr int kFastBits = 9;
 
 struct HuffTable {
   bool defined = false;
+  int maxsym = 0;
   uint8_t fast_len[1 << kFastBits];  // 0: code longer than kFastBits
   uint8_t fast_val[1 << kFastBits];
   int32_t maxcode[18];
@@ -56,6 +99,8 @@ struct HuffTable {
 void build_huff(HuffTable& t, const uint8_t* counts, const uint8_t* vals, int nvals) {
   std::memset(t.fast_len, 0, sizeof(t.fast_len));
   std::memcpy(t.vals, vals, nvals);
+  t.maxsym = 0;
+  for (int i = 0; i < nvals; i++) t.maxsym = std::max(t.maxsym, (int)vals[i]);
   int code = 0, k = 0;
   for (int len = 1; len <= 16; len++) {
     t.valoffset[len] = k - code;
@@ -83,13 +128,20 @@ struct Component {
   bool quant_latched = false;
   uint16_t quant[64];        // natural order, latched at the component's first scan
   std::vector<int16_t> coef;  // bh x bw blocks of 64, natural order
+  std::vector<uint16_t> samp;  // lossless: (mcuy x v) rows of (mcux x h) samples
   int dc_pred = 0;
+  int dc_context = 0;  // arithmetic coding: the DC conditioning category
+  int first_row = 0;   // lossless: the sample row at which the current restart interval began
   int dc_table = 0, ac_table = 0;
 };
 
 class Decoder {
  public:
-  Decoder(const uint8_t* data, size_t n) : d_(data), n_(n) {}
+  Decoder(const uint8_t* data, size_t n) : d_(data), n_(n) {
+    std::memset(dac_l_, 0, sizeof(dac_l_));
+    std::memset(dac_u_, 1, sizeof(dac_u_));
+    std::memset(dac_k_, 5, sizeof(dac_k_));
+  }
 
   // Parses up to the first scan (headers_only) or the whole file.
   void run(bool headers_only) {
@@ -104,11 +156,13 @@ class Decoder {
       const uint8_t* s = d_ + pos_ + 2;
       size_t sn = len - 2;
       switch (m) {
-        case 0xC0: case 0xC1: case 0xC2: parse_sof(s, sn, m == 0xC2); break;
-        case 0xC3: refused("lossless (SOF3)");
-        case 0xC5: case 0xC6: case 0xC7: refused("hierarchical (differential) coded");
-        case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF: refused("arithmetic-coded");
+        case 0xC0: case 0xC1: case 0xC2: parse_sof(s, sn, m == 0xC2, false, false); break;
+        case 0xC3: parse_sof(s, sn, false, false, true); break;
+        case 0xC9: case 0xCA: parse_sof(s, sn, m == 0xCA, true, false); break;
+        case 0xCB: unread("lossless arithmetic-coded (SOF11)");
+        case 0xC5: case 0xC6: case 0xC7: case 0xCD: case 0xCE: case 0xCF: unread("hierarchical (differential) coded");
         case 0xC4: parse_dht(s, sn); break;
+        case 0xCC: parse_dac(s, sn); break;
         case 0xDB: parse_dqt(s, sn); break;
         case 0xDD:
           if (sn < 2) malformed("short DRI");
@@ -150,15 +204,23 @@ class Decoder {
  private:
   const uint8_t* d_;
   size_t n_, pos_ = 0;
-  bool have_frame_ = false, progressive_ = false;
+  bool have_frame_ = false, progressive_ = false, arithmetic_ = false, lossless_ = false;
+  int precision_ = 8;
   bool saw_jfif_ = false, saw_adobe_ = false, saw_exif_ = false;
-  int adobe_transform_ = -1, orientation_ = 1;
+  int adobe_transform_ = -1, orientation_ = 1, point_transform_ = 0;
   int width_ = 0, height_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   int restart_interval_ = 0;
   std::vector<Component> comps_;
   uint16_t qt_[4][64];
   bool qt_defined_[4] = {false, false, false, false};
   HuffTable dc_[4], ac_[4];
+  uint8_t dac_l_[16], dac_u_[16], dac_k_[16];  // DAC: DC conditioning bounds L and U, AC Kx, by table
+
+  // arithmetic decoding (jdarith.c)
+  int64_t ac_c_ = 0, ac_a_ = 0;
+  int ac_ct_ = 0;
+  bool ac_bad_ = false;  // a bad code: the rest of the restart interval decodes as zeros, as libjpeg's ct = -1
+  uint8_t dc_stats_[4][64], ac_stats_[4][256], fixed_bin_ = 113;
 
   // entropy-coded data
   uint64_t bitbuf_ = 0;
@@ -207,17 +269,22 @@ class Decoder {
     return 1;
   }
 
-  void parse_sof(const uint8_t* s, size_t n, bool progressive) {
+  void parse_sof(const uint8_t* s, size_t n, bool progressive, bool arithmetic, bool lossless) {
     if (have_frame_) malformed("two frame headers");
     if (n < 6) malformed("short SOF");
-    if (s[0] != 8) refused(std::to_string(s[0]) + "-bit");
+    precision_ = s[0];
+    if (lossless) {
+      if (precision_ < 2 || precision_ > 16) malformed(std::to_string(precision_) + "-bit lossless");
+      if (precision_ > 8) unread("lossless " + std::to_string(precision_) + "-bit");
+    } else if (precision_ != 8) {
+      unread(std::to_string(precision_) + "-bit");
+    }
     height_ = (s[1] << 8) | s[2];
     width_ = (s[3] << 8) | s[4];
     int nc = s[5];
     if (height_ == 0) malformed("height 0 (DNL) is not taken");
     if (width_ == 0) malformed("width 0");
-    if (nc == 4) refused("4-component (CMYK/YCCK)");
-    if (nc != 1 && nc != 3) malformed(std::to_string(nc) + " components");
+    if (nc != 1 && nc != 3 && nc != 4) malformed(std::to_string(nc) + " components");
     if (n < 6 + 3 * (size_t)nc) malformed("short SOF");
     comps_.resize(nc);
     for (int i = 0; i < nc; i++) {
@@ -230,18 +297,37 @@ class Decoder {
       hmax_ = std::max(hmax_, c.h);
       vmax_ = std::max(vmax_, c.v);
     }
-    mcux_ = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
-    mcuy_ = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
+    const int unit = lossless ? 1 : 8;  // a lossless MCU holds h x v samples of each component
+    mcux_ = (width_ + unit * hmax_ - 1) / (unit * hmax_);
+    mcuy_ = (height_ + unit * vmax_ - 1) / (unit * vmax_);
     for (Component& c : comps_) {
       if (hmax_ % c.h || vmax_ % c.v) malformed("fractional sampling");
       c.width = (int)(((long)width_ * c.h + hmax_ - 1) / hmax_);
       c.height = (int)(((long)height_ * c.v + vmax_ - 1) / vmax_);
       c.bw = mcux_ * c.h;
       c.bh = mcuy_ * c.v;
-      c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+      if (lossless) c.samp.assign((size_t)c.bw * c.bh, 0);
+      else c.coef.assign((size_t)c.bw * c.bh * 64, 0);
     }
     progressive_ = progressive;
+    arithmetic_ = arithmetic;
+    lossless_ = lossless;
     have_frame_ = true;
+  }
+
+  void parse_dac(const uint8_t* s, size_t n) {
+    for (size_t p = 0; p < n; p += 2) {
+      if (p + 2 > n) malformed("short DAC");
+      int index = s[p], val = s[p + 1];
+      if (index >= 32) malformed("bad DAC index");
+      if (index >= 16) {
+        dac_k_[index - 16] = (uint8_t)val;
+      } else {
+        dac_l_[index] = (uint8_t)(val & 15);
+        dac_u_[index] = (uint8_t)(val >> 4);
+        if (dac_l_[index] > dac_u_[index]) malformed("bad DAC value");
+      }
+    }
   }
 
   void parse_dht(const uint8_t* s, size_t n) {
@@ -254,7 +340,7 @@ class Decoder {
       for (int i = 0; i < 16; i++) total += s[p + 1 + i];
       if (total > 256 || p + 17 + total > n) malformed("bad DHT");
       for (int i = 0; tc == 0 && i < total; i++)
-        if (s[p + 17 + i] > 15) malformed("DC Huffman table with a size above 15");
+        if (s[p + 17 + i] > 16) malformed("DC Huffman table with a size above 16");
       build_huff(tc ? ac_[th] : dc_[th], s + p + 1, s + p + 17, total);
       p += 17 + total;
     }
@@ -431,6 +517,251 @@ class Decoder {
     }
   }
 
+  // ---- arithmetic decoding (jdarith.c) ----
+  int arith_byte() {  // the next data byte; zeros once a marker (left for the parser) or the end is reached
+    if (marker_hit_ || pos_ >= n_) {
+      marker_hit_ = true;
+      return 0;
+    }
+    int c = d_[pos_++];
+    if (c != 0xFF) return c;
+    while (pos_ < n_ && d_[pos_] == 0xFF) pos_++;
+    if (pos_ < n_ && d_[pos_] == 0) {
+      pos_++;
+      return 0xFF;
+    }
+    marker_hit_ = true;
+    pos_--;  // at an 0xFF before the marker's code
+    return 0;
+  }
+
+  int arith_decode(uint8_t* st) {
+    while (ac_a_ < 0x8000) {
+      if (--ac_ct_ < 0) {
+        ac_c_ = (ac_c_ << 8) | arith_byte();
+        if ((ac_ct_ += 8) < 0)      // more initial bytes needed
+          if (++ac_ct_ == 0) ac_a_ = 0x8000;  // two initial bytes: A becomes 0x10000 below
+      }
+      ac_a_ <<= 1;
+    }
+    int sv = *st;
+    uint32_t qe = kQe[sv & 0x7F];
+    int nl = qe & 0xFF, nm = (qe >> 8) & 0xFF;
+    int64_t q = qe >> 16;
+    int64_t temp = ac_a_ - q;
+    ac_a_ = temp;
+    temp <<= ac_ct_;
+    if (ac_c_ >= temp) {
+      ac_c_ -= temp;
+      if (ac_a_ < q) {  // conditional LPS exchange
+        ac_a_ = q;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        ac_a_ = q;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (ac_a_ < 0x8000) {  // conditional MPS exchange
+      if (ac_a_ < q) {
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // the conditioning state of the scan's components, and the decoder's registers, as a scan or restart begins
+  void arith_reset(std::vector<Component*>& scomps, bool dc, bool ac) {
+    for (Component* c : scomps) {
+      if (dc) {
+        std::memset(dc_stats_[c->dc_table], 0, 64);
+        c->dc_pred = 0;
+        c->dc_context = 0;
+      }
+      if (ac) std::memset(ac_stats_[c->ac_table], 0, 256);
+    }
+    ac_c_ = 0;
+    ac_a_ = 0;
+    ac_ct_ = -16;
+    ac_bad_ = false;
+  }
+
+  // Figures F.19-F.24: a DC difference, its context updated (Section F.1.4.4.1.2)
+  bool arith_dc_diff(Component& c, int* diff) {
+    int tbl = c.dc_table;
+    uint8_t* st = dc_stats_[tbl] + c.dc_context;
+    if (arith_decode(st) == 0) {
+      c.dc_context = 0;
+      *diff = 0;
+      return true;
+    }
+    int sign = arith_decode(st + 1);
+    st += 2 + sign;
+    int m = arith_decode(st);
+    if (m) {
+      st = dc_stats_[tbl] + 20;
+      while (arith_decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        st += 1;
+      }
+    }
+    if (m < ((1 << dac_l_[tbl]) >> 1)) c.dc_context = 0;
+    else if (m > ((1 << dac_u_[tbl]) >> 1)) c.dc_context = 12 + sign * 4;
+    else c.dc_context = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (arith_decode(st)) v |= m;
+    v += 1;
+    *diff = sign ? -v : v;
+    return true;
+  }
+
+  // Figure F.20 over positions ss..se: the coefficients, scaled by 2^al; false on a bad code
+  bool arith_ac_run(Component& c, int16_t* blk, int ss, int se, int al) {
+    int tbl = c.ac_table;
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = ac_stats_[tbl] + 3 * (k - 1);
+      if (arith_decode(st)) break;  // EOB
+      while (arith_decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) return false;
+      }
+      int sign = arith_decode(&fixed_bin_);
+      st += 2;
+      int m = arith_decode(st);
+      if (m && arith_decode(st)) {
+        m <<= 1;
+        st = ac_stats_[tbl] + (k <= dac_k_[tbl] ? 189 : 217);
+        while (arith_decode(st)) {
+          if ((m <<= 1) == 0x8000) return false;
+          st += 1;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (arith_decode(st)) v |= m;
+      v += 1;
+      blk[kNatural[k]] = (int16_t)((unsigned)(sign ? -v : v) << al);
+    }
+    return true;
+  }
+
+  // Figure G.11: one more bit of positions ss..se
+  bool arith_ac_refine(Component& c, int16_t* blk, int ss, int se, int al) {
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    int kex = se;
+    for (; kex > 0; kex--)
+      if (blk[kNatural[kex]]) break;
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = ac_stats_[c.ac_table] + 3 * (k - 1);
+      if (k > kex && arith_decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef) {  // a coefficient already nonzero: its next bit
+          if (arith_decode(st + 2)) *coef = (int16_t)(*coef < 0 ? *coef + m1 : *coef + p1);
+          break;
+        }
+        if (arith_decode(st + 1)) {  // newly nonzero
+          *coef = (int16_t)(arith_decode(&fixed_bin_) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) return false;
+      }
+    }
+    return true;
+  }
+
+  void arith_block(Component& c, int16_t* blk, int ss, int se, int ah, int al) {
+    if (ac_bad_) return;
+    bool ok = true;
+    if (!progressive_) {
+      int diff;
+      ok = arith_dc_diff(c, &diff);
+      if (ok) {
+        c.dc_pred += diff;
+        blk[0] = (int16_t)c.dc_pred;
+        ok = arith_ac_run(c, blk, 1, 63, 0);
+      }
+    } else if (ss == 0 && ah == 0) {
+      int diff;
+      ok = arith_dc_diff(c, &diff);
+      if (ok) {
+        c.dc_pred += diff;
+        blk[0] = (int16_t)((unsigned)c.dc_pred << al);
+      }
+    } else if (ss == 0) {
+      if (arith_decode(&fixed_bin_)) blk[0] = (int16_t)(blk[0] | (1 << al));
+    } else if (ah == 0) {
+      ok = arith_ac_run(c, blk, ss, se, al);
+    } else {
+      ok = arith_ac_refine(c, blk, ss, se, al);
+    }
+    if (!ok) ac_bad_ = true;  // libjpeg warns and decodes nothing more until the next restart
+  }
+
+  // the RSTn that a restart interval ends with, whatever the entropy coder left unread
+  void skip_to_restart() {
+    size_t p = pos_;
+    while (p + 1 < n_ && !(d_[p] == 0xFF && d_[p + 1] != 0 && d_[p + 1] != 0xFF)) p++;
+    if (p + 1 < n_ && d_[p + 1] >= 0xD0 && d_[p + 1] <= 0xD7) pos_ = p + 2;
+    else pos_ = p;  // no RST where one was due: leave the marker for the parser
+    bitbuf_ = 0;
+    bitcnt_ = 0;
+    marker_hit_ = false;
+    eobrun_ = 0;
+  }
+
+  // ---- lossless (Annex H; jdlhuff.c and jddiffct.c) ----
+  void decode_lossless_scan(std::vector<Component*>& sc, int predictor, int pt) {
+    const int ns = (int)sc.size();
+    const int per_row = ns == 1 ? sc[0]->width : mcux_;
+    const int rows = ns == 1 ? sc[0]->height : mcuy_;
+    if (restart_interval_ && restart_interval_ % per_row)
+      malformed("a lossless restart interval that is not a whole number of MCU rows");
+    for (Component* c : sc) c->first_row = 0;
+    const int initial = 1 << (precision_ - pt - 1);
+    for (int my = 0; my < rows; my++) {
+      if (restart_interval_ && my && ((long)my * per_row) % restart_interval_ == 0) {
+        skip_to_restart();
+        for (Component* c : sc) c->first_row = ns == 1 ? my : my * c->v;
+      }
+      for (int mx = 0; mx < per_row; mx++)
+        for (Component* c : sc) {
+          const int uh = ns == 1 ? 1 : c->h, uv = ns == 1 ? 1 : c->v;
+          for (int yy = 0; yy < uv; yy++)
+            for (int xx = 0; xx < uh; xx++) {
+              int X = mx * uh + xx, Y = my * uv + yy;
+              int s = decode(dc_[c->dc_table]);
+              int diff = s == 0 ? 0 : s == 16 ? 32768 : extend(get_bits(s), s);
+              uint16_t* row = c->samp.data() + (size_t)Y * c->bw;
+              int pred;
+              if (Y == c->first_row) {
+                pred = X ? row[X - 1] : initial;
+              } else if (X == 0) {
+                pred = row[X - (int)c->bw];
+              } else {
+                int ra = row[X - 1], rb = row[X - (int)c->bw], rc = row[X - 1 - (int)c->bw];
+                switch (predictor) {
+                  case 1: pred = ra; break;
+                  case 2: pred = rb; break;
+                  case 3: pred = rc; break;
+                  case 4: pred = ra + rb - rc; break;
+                  case 5: pred = ra + ((rb - rc) >> 1); break;
+                  case 6: pred = rb + ((ra - rc) >> 1); break;
+                  default: pred = (ra + rb) >> 1; break;
+                }
+              }
+              row[X] = (uint16_t)((pred + diff) & 0xFFFF);
+            }
+        }
+    }
+  }
+
   void decode_scan(const uint8_t* s, size_t n) {
     if (n < 1) malformed("short SOS");
     int ns = s[0];
@@ -448,6 +779,22 @@ class Decoder {
       sc.push_back(c);
     }
     int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ah = s[3 + 2 * ns] >> 4, al = s[3 + 2 * ns] & 15;
+    if (lossless_) {
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= precision_) malformed("bad lossless scan parameters");
+      for (Component* c : sc) {
+        if (!dc_[c->dc_table].defined) malformed("scan uses an undefined Huffman table");
+        c->quant_latched = true;  // the component has samples
+      }
+      bitbuf_ = 0;
+      bitcnt_ = 0;
+      marker_hit_ = false;
+      decode_lossless_scan(sc, ss, al);
+      point_transform_ = al;
+      while (pos_ + 1 < n_ && !(d_[pos_] == 0xFF && d_[pos_ + 1] != 0 && d_[pos_ + 1] != 0xFF &&
+                                !(d_[pos_ + 1] >= 0xD0 && d_[pos_ + 1] <= 0xD7)))
+        pos_++;
+      return;
+    }
     if (!progressive_) {
       ss = 0;
       se = 63;
@@ -463,18 +810,22 @@ class Decoder {
       }
       bool need_dc = !progressive_ || (ss == 0 && ah == 0);
       bool need_ac = !progressive_ || ss > 0;
-      if ((need_dc && !dc_[c->dc_table].defined) || (need_ac && !ac_[c->ac_table].defined))
+      if (!arithmetic_ && ((need_dc && !dc_[c->dc_table].defined) || (need_ac && !ac_[c->ac_table].defined)))
         malformed("scan uses an undefined Huffman table");
+      if (!arithmetic_ && need_dc && dc_[c->dc_table].maxsym > 15) malformed("DC Huffman table with a size above 15");
       c->dc_pred = 0;
     }
     bitbuf_ = 0;
     bitcnt_ = 0;
     marker_hit_ = false;
     eobrun_ = 0;
+    const bool arith_dc = !progressive_ || (ss == 0 && ah == 0), arith_ac = !progressive_ || ss > 0;
+    if (arithmetic_) arith_reset(sc, arith_dc, arith_ac);
 
     auto block = [&](Component& c, int bx, int by) {
       int16_t* blk = c.coef.data() + ((size_t)by * c.bw + bx) * 64;
-      if (!progressive_) block_sequential(c, blk);
+      if (arithmetic_) arith_block(c, blk, ss, se, ah, al);
+      else if (!progressive_) block_sequential(c, blk);
       else if (ss == 0 && ah == 0) block_dc_first(c, blk, al);
       else if (ss == 0) block_dc_refine(blk, al);
       else if (ah == 0) block_ac_first(c, blk, ss, se, al);
@@ -490,6 +841,7 @@ class Decoder {
         for (int bx = 0; bx < nbx; bx++) {
           if (restart_interval_ && todo == 0) {
             restart(sc);
+            if (arithmetic_) arith_reset(sc, arith_dc, arith_ac);
             todo = restart_interval_;
           }
           block(c, bx, by);
@@ -500,6 +852,7 @@ class Decoder {
         for (int mx = 0; mx < mcux_; mx++) {
           if (restart_interval_ && todo == 0) {
             restart(sc);
+            if (arithmetic_) arith_reset(sc, arith_dc, arith_ac);
             todo = restart_interval_;
           }
           for (Component* c : sc)
@@ -703,22 +1056,30 @@ void Decoder::render(uint8_t* out) {
   for (int ci = 0; ci < nc; ci++) {
     Component& c = comps_[ci];
     if (!c.quant_latched) malformed("a component that no scan holds");
-    int stride = c.bw * 8;
-    std::vector<uint8_t> plane((size_t)stride * c.bh * 8);
-    int nbx = (c.width + 7) / 8, nby = (c.height + 7) / 8;
-    for (int by = 0; by < nby; by++)
-      for (int bx = 0; bx < nbx; bx++)
-        idct_islow(c.coef.data() + ((size_t)by * c.bw + bx) * 64, c.quant, &plane[(size_t)by * 8 * stride + bx * 8],
-                   stride);
+    int stride = lossless_ ? c.bw : c.bw * 8;
+    std::vector<uint8_t> plane((size_t)stride * c.bh * (lossless_ ? 1 : 8));
+    if (lossless_) {  // samples scaled by the point transform, as an 8-bit reader gets them
+      for (size_t i = 0; i < plane.size(); i++) plane[i] = (uint8_t)(c.samp[i] << point_transform_);
+    } else {
+      int nbx = (c.width + 7) / 8, nby = (c.height + 7) / 8;
+      for (int by = 0; by < nby; by++)
+        for (int bx = 0; bx < nbx; bx++)
+          idct_islow(c.coef.data() + ((size_t)by * c.bw + bx) * 64, c.quant,
+                     &plane[(size_t)by * 8 * stride + bx * 8], stride);
+    }
     int hx = hmax_ / c.h, vx = vmax_ / c.v;
     full[ci] = upsample(plane, stride, c.width, c.height, hx, vx);
     full_stride[ci] = c.width * hx;
   }
+  // jdapimin.c's colour space: JFIF, then Adobe's transform, then the component ids (lossless: RGB)
   bool ycc = nc == 3;
   if (nc == 3 && !saw_jfif_) {
     if (saw_adobe_) ycc = adobe_transform_ != 0;
-    else ycc = !(comps_[0].id == 'R' && comps_[1].id == 'G' && comps_[2].id == 'B');
+    else ycc = !lossless_ && !(comps_[0].id == 'R' && comps_[1].id == 'G' && comps_[2].id == 'B');
   }
+  const bool ycck = nc == 4 && saw_adobe_ && adobe_transform_ != 0;
+  if (lossless_ && (nc == 1 || ycc || ycck))
+    unread(nc == 1 ? "lossless greyscale" : "lossless YCbCr or YCCK");  // libjpeg converts no colour in lossless mode
   static const YccTables t;
   std::vector<uint8_t> rgb((size_t)W * H * 3);
   for (int y = 0; y < H; y++) {
@@ -731,6 +1092,22 @@ void Decoder::render(uint8_t* out) {
     const uint8_t* p0 = &full[0][(size_t)y * full_stride[0]];
     const uint8_t* p1 = &full[1][(size_t)y * full_stride[1]];
     const uint8_t* p2 = &full[2][(size_t)y * full_stride[2]];
+    if (nc == 4) {
+      const uint8_t* p3 = &full[3][(size_t)y * full_stride[3]];
+      for (int x = 0; x < W; x++) {
+        int c = p0[x], m = p1[x], yv = p2[x], k = p3[x];
+        if (ycck) {  // ycck_cmyk_convert
+          int yy = p0[x], cb = p1[x], cr = p2[x];
+          c = clamp255(255 - (yy + t.cr_r[cr]));
+          m = clamp255(255 - (yy + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
+          yv = clamp255(255 - (yy + t.cb_b[cb]));
+        }
+        o[3 * x] = (uint8_t)(k - ((255 - c) * k >> 8));  // OpenCV's icvCvt_CMYK2BGR
+        o[3 * x + 1] = (uint8_t)(k - ((255 - m) * k >> 8));
+        o[3 * x + 2] = (uint8_t)(k - ((255 - yv) * k >> 8));
+      }
+      continue;
+    }
     for (int x = 0; x < W; x++) {
       if (!ycc) {
         o[3 * x] = p0[x];

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import glob
 import os
+from typing import NamedTuple
 
 import numpy as np
 import scipy.ndimage
@@ -160,13 +161,63 @@ def sam_iou_certainty(sam: np.ndarray, smpl_mask_path: str | None, ratio_uncerta
     return iou, np.sort(iou)[int(len(iou) * ratio_uncertain)]
 
 
+class SamPickup(NamedTuple):
+    """What a sequence has picked up from the refinement stages: the SAM file
+    read, its masks (F, H, W, P) logits, and the per-frame certainty with its
+    threshold. Published in one assignment, so a reader on another thread
+    never pairs new masks with the old certainty."""
+
+    path: str
+    masks: np.ndarray | None
+    iou: np.ndarray
+    threshold: float
+
+
+def read_sam_pickup(run_dir: str, current: SamPickup, ratio_uncertain: float) -> SamPickup:
+    """The latest stage files as a new `SamPickup`, or `current` when there is
+    nothing newer or the file is missing or half-written (a writer's race).
+    Without instance masks the certainty stays as it was."""
+    path = latest_stage_file(run_dir, "stage_sam_mask", "sam_opt_mask.npy")
+    if path is None or path == current.path:
+        return current
+    try:
+        sam = np.load(path)  # (F, P, H, W) logits
+        certainty = sam_iou_certainty(
+            sam, latest_stage_file(run_dir, "stage_instance_mask", "all_person_smpl_mask.npy"), ratio_uncertain,
+        )
+    except (OSError, ValueError):
+        return current
+    iou, threshold = certainty if certainty is not None else (current.iou, current.threshold)
+    return SamPickup(path, sam.transpose(0, 2, 3, 1), iou, threshold)
+
+
+class SamPickupFields:
+    """The pickup's fields under their old names (`_sam_path`, `_sam_masks`,
+    `smpl_sam_iou`, `uncertain_threshold`); a reader that needs two of them
+    together reads `sam_pickup` once. Setting a field replaces the whole tuple."""
+
+    sam_pickup: SamPickup
+
+    def _set_pickup(self, **fields) -> None:
+        self.sam_pickup = self.sam_pickup._replace(**fields)
+
+    _sam_path = property(lambda self: self.sam_pickup.path, lambda self, v: self._set_pickup(path=v))
+    _sam_masks = property(lambda self: self.sam_pickup.masks, lambda self, v: self._set_pickup(masks=v))
+    smpl_sam_iou = property(lambda self: self.sam_pickup.iou, lambda self, v: self._set_pickup(iou=v))
+    uncertain_threshold = property(lambda self: self.sam_pickup.threshold,
+                                   lambda self, v: self._set_pickup(threshold=v))
+
+    def _refresh_sam(self) -> None:
+        self.sam_pickup = read_sam_pickup(self.run_dir, self.sam_pickup, self.ratio_uncertain)
+
+
 def latest_stage_file(run_dir: str, stage: str, name: str) -> str | None:
     """`<run_dir>/<stage>/<latest epoch>/<name>`, or None without a stage dir."""
     dirs = sorted(glob.glob(os.path.join(run_dir, stage, "*")))
     return os.path.join(dirs[-1], name) if dirs else None
 
 
-class Hi4DSequence:
+class Hi4DSequence(SamPickupFields):
     """A preprocessed multi-person sequence and its refinement-loop state."""
 
     def __init__(
@@ -301,32 +352,10 @@ class Hi4DSequence:
         self.edge_paths = sorted(glob.glob(f"{edge_dir}/*.png")) if os.path.isdir(edge_dir) else None
 
         # SAM refinement pickup state
-        self._sam_path = ""
-        self._sam_masks: np.ndarray | None = None  # (F, H, W, P) logits
-        self.smpl_sam_iou = np.ones(self.n_images)
-        self.uncertain_threshold = 0.0
+        self.sam_pickup = SamPickup("", None, np.ones(self.n_images), 0.0)
 
     def __len__(self) -> int:
         return self.n_images
-
-    # -- refinement-loop pickup -----------------------------------------
-
-    def _refresh_sam(self) -> None:
-        path = latest_stage_file(self.run_dir, "stage_sam_mask", "sam_opt_mask.npy")
-        if path is None or path == self._sam_path:
-            return
-        try:
-            sam = np.load(path)  # (F, P, H, W) logits
-            certainty = sam_iou_certainty(
-                sam, latest_stage_file(self.run_dir, "stage_instance_mask", "all_person_smpl_mask.npy"),
-                self.ratio_uncertain,
-            )
-        except (OSError, ValueError):
-            return  # a writer's race: keep the previous masks
-        if certainty is not None:
-            self.smpl_sam_iou, self.uncertain_threshold = certainty
-        self._sam_masks = sam.transpose(0, 2, 3, 1)
-        self._sam_path = path
 
     # -- items -----------------------------------------------------------
 
@@ -343,8 +372,9 @@ class Hi4DSequence:
         if self.using_sam:
             self._refresh_sam()
         frame = self.load_frame(idx)
-        sam = self._sam_masks[idx] if self._sam_masks is not None else None
-        is_certain = bool(self.smpl_sam_iou[idx] >= self.uncertain_threshold)
+        pickup = self.sam_pickup
+        sam = pickup.masks[idx] if pickup.masks is not None else None
+        is_certain = bool(pickup.iou[idx] >= pickup.threshold)
 
         data = {"rgb": frame["img"], "uv": frame["uv"], "object_mask": frame["mask_union"]}
         if sam is not None:

@@ -10,11 +10,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from .dataset import edge_band, edge_sampling, latest_stage_file, sam_iou_certainty, weighted_sampling
+from .dataset import SamPickup, SamPickupFields, edge_band, edge_sampling, weighted_sampling
 from .synthetic import SyntheticScene
 
 
-class SyntheticSequence:
+class SyntheticSequence(SamPickupFields):
     def __init__(self, scene: SyntheticScene, num_sample: int = 128, using_sam: bool = True,
                  ratio_uncertain: float = 0.5, run_dir: str = "."):
         self.scene = scene
@@ -37,30 +37,10 @@ class SyntheticSequence:
         H, W = scene.height, scene.width
         self._uv = np.stack(np.meshgrid(np.arange(W), np.arange(H), indexing="xy"), axis=-1).astype(np.float32)
 
-        self._sam_path = ""
-        self._sam_masks: np.ndarray | None = None
-        self.smpl_sam_iou = np.ones(len(scene.images))
-        self.uncertain_threshold = 0.0
+        self.sam_pickup = SamPickup("", None, np.ones(len(scene.images)), 0.0)
 
     def __len__(self) -> int:
         return len(self.scene.images)
-
-    def _refresh_sam(self) -> None:
-        path = latest_stage_file(self.run_dir, "stage_sam_mask", "sam_opt_mask.npy")
-        if path is None or path == self._sam_path:
-            return
-        try:
-            sam = np.load(path)  # (F, P, H, W) logits
-        except (OSError, ValueError):
-            return  # missing or half-written: keep the previous masks
-        self._sam_masks = sam.transpose(0, 2, 3, 1)
-        self._sam_path = path
-        certainty = sam_iou_certainty(
-            sam, latest_stage_file(self.run_dir, "stage_instance_mask", "all_person_smpl_mask.npy"),
-            self.ratio_uncertain,
-        )
-        if certainty is not None:
-            self.smpl_sam_iou, self.uncertain_threshold = certainty
 
     def load_frame(self, idx: int) -> dict:
         """Full-image arrays in the `Hi4DSequence.load_frame` layout."""
@@ -73,10 +53,11 @@ class SyntheticSequence:
             self._refresh_sam()
         scene = self.scene
         data = {"rgb": scene.images[idx], "uv": self._uv, "object_mask": scene.masks[idx].any(-1)}
-        sam = self._sam_masks[idx] if self._sam_masks is not None else scene.sam_logits[idx]
+        pickup = self.sam_pickup
+        sam = pickup.masks[idx] if pickup.masks is not None else scene.sam_logits[idx]
         data["sam_mask"] = sam
         samples, _ = weighted_sampling(data, (scene.height, scene.width), self.num_sample, rng)
-        is_certain = bool(self.smpl_sam_iou[idx] >= self.uncertain_threshold)
+        is_certain = bool(pickup.iou[idx] >= pickup.threshold)
         out = {
             "uv": samples["uv"].astype(np.float32),
             "rgb": samples["rgb"].astype(np.float32),

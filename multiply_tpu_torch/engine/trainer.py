@@ -248,33 +248,30 @@ class Trainer:
     # mode selection per frame
     # ------------------------------------------------------------------
 
-    def _select_mode(self, is_certain: bool, has_sam: bool) -> int:
+    def _pose_epoch(self) -> bool:
+        """Whether the schedule makes this a pose-only epoch: inside the pose
+        window, on its interval, and not left to opt_depth (`depth_end`)."""
         ep = self.epoch
-        is_pose_depth = (
-            has_sam
-            and ep >= self.pose_start_epoch
+        return (
+            ep >= self.pose_start_epoch
             and ep % self.pose_opt_interval < self.pose_opt_epoch
             and ep < self.pose_end_epoch
             and not self.depth_end
         )
+
+    def _select_mode(self, is_certain: bool, has_sam: bool) -> int:
+        is_pose_depth = has_sam and self._pose_epoch()
         if self.using_sam:
             if is_pose_depth:
                 return MODE_POSE_ONLY
-            if ep < self.pose_correction_epoch and not is_certain:
+            if self.epoch < self.pose_correction_epoch and not is_certain:
                 return MODE_DELAYED_POSE
         return MODE_JOINT
 
     def _pose_window(self) -> bool:
-        """Whether this epoch can make pose-only steps (the epoch part of
-        `_select_mode`'s pose-only condition)."""
-        ep = self.epoch
-        return (
-            self.using_sam
-            and ep >= self.pose_start_epoch
-            and ep % self.pose_opt_interval < self.pose_opt_epoch
-            and ep < self.pose_end_epoch
-            and not self.depth_end
-        )
+        """Whether this epoch can make pose-only steps: `_select_mode` gives
+        MODE_POSE_ONLY for a frame with SAM masks exactly when this holds."""
+        return self.using_sam and self._pose_epoch()
 
     # ------------------------------------------------------------------
     # canonical SDF queries

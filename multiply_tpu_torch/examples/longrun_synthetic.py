@@ -161,8 +161,9 @@ def segment_logs(metrics_path, seg_lo):
     return logs, pose_max, n_delayed
 
 
-def run(conf, args) -> dict:
+def run(conf, args, on_segment=None) -> dict:
     """The schedule on `conf` (from `build_conf`, which a caller may narrow).
+    `on_segment(trainer, row)`, if given, is called after each segment's row.
     Returns the rows, the initial mask IoU and translation error, the final
     opt_depth pass's PSNR before/after, its largest translation change and
     seconds, the wall time, and `segments`: for each segment and then the
@@ -265,6 +266,8 @@ def run(conf, args) -> dict:
         }
         rows.append(row)
         end_segment()
+        if on_segment is not None:
+            on_segment(tr, row)
         print(
             f"[segment] epoch {row['epoch']} PSNR {row['psnr']:.2f} "
             f"IoU {row['mask_iou']:.3f} gtIoU {row['gt_iou']:.3f} "
@@ -295,9 +298,9 @@ def run(conf, args) -> dict:
             "segments": segments}
 
 
-def main(argv=None) -> dict:
+def main(argv=None, on_segment=None) -> dict:
     args = parse_args(argv)
-    return run(build_conf(args), args)
+    return run(build_conf(args), args, on_segment=on_segment)
 
 
 def figure_dir(path):

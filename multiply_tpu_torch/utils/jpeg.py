@@ -1,14 +1,16 @@
 """JPEG decoding on the host, pixel for pixel as `cv2.imread(path, cv2.IMREAD_COLOR)[:, :, ::-1]`.
 
-The decoder is C++ (`csrc/jpeg_decode.cpp`): Huffman-coded 8-bit files,
-sequential and progressive, with restart intervals, every integral sampling
-factor, grey and the EXIF orientation, decoded with libjpeg's integer IDCT,
-fancy upsampling and fixed-point colour tables, as OpenCV's libjpeg-turbo
-does. It is built with `cuda_build.build_host` into `_build/libjpeg_decode.so`
-on first use and loaded with `ctypes`, as `native.py` loads its library.
-Arithmetic coding, 12-bit samples, lossless or hierarchical coding and CMYK/YCCK
-files raise `NotImplementedError` naming the mode; a malformed file raises
-`ValueError`.
+The decoder is C++ (`csrc/jpeg_decode.cpp`): 8-bit files, sequential and
+progressive, Huffman- or arithmetic-coded, lossless files of 2-8 bits, with
+restart intervals, every integral sampling factor, grey, YCbCr, RGB, CMYK and
+YCCK and the EXIF orientation, decoded with libjpeg's integer IDCT, fancy
+upsampling and fixed-point colour tables and OpenCV's CMYK conversion, as
+OpenCV's libjpeg-turbo does. It is built with `cuda_build.build_host` into
+`_build/libjpeg_decode.so` on first use and loaded with `ctypes`, as
+`native.py` loads its library. The modes that `cv2.imread` reads as None
+(12-bit samples, hierarchical coding, lossless files of more than 8 bits,
+arithmetic-coded or needing a colour conversion) raise `NotImplementedError`
+naming the mode; a malformed file raises `ValueError`.
 """
 
 from __future__ import annotations

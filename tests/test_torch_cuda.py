@@ -294,8 +294,12 @@ def test_jpeg_fixtures_decode_as_opencv_on_the_card_machine(cuda_device):
     from multiply_tpu_torch.utils.jpeg import read_jpeg
 
     files = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "data", "torch_jpeg", "*.jpg")))
-    assert len(files) == 10
+    assert len(files) == 16
     for path in files:
+        if not os.path.exists(path[:-4] + ".png"):  # a mode that OpenCV reads as None
+            with pytest.raises(NotImplementedError, match="OpenCV"):
+                read_jpeg(path)
+            continue
         assert np.array_equal(read_jpeg(path), read_png(path[:-4] + ".png")), path
 
 

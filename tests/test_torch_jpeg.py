@@ -1,16 +1,20 @@
 """The port's JPEG decoder (`multiply_tpu_torch/utils/jpeg.py`) against OpenCV.
 
-Every file here is written by `cv2.imencode` or Pillow and decoded by
+Every file here is written by `cv2.imencode`, Pillow or the fixture script's
+own encoder (`tests/data/torch_jpeg/make_fixtures.py`: YCCK, arithmetic
+coding, 12-bit and lossless files) and decoded by
 `cv2.imdecode(..., cv2.IMREAD_COLOR)[:, :, ::-1]`, the JAX package's frame
 reader; the port must give the same pixels bit for bit: the five sampling
 factors that OpenCV writes, progressive, restart intervals, optimised tables,
-grey, odd sizes, Pillow's files and every EXIF orientation. The modes it does
-not take must raise with their names, and the committed fixtures must decode
-to their committed PNGs. `chip_smoke.encode_jpeg`, the scaffold that makes
-path V's frames where there is no encoder, is held to OpenCV's encoder.
+grey, odd sizes, Pillow's files, every EXIF orientation, CMYK and YCCK,
+arithmetic coding and lossless files. The modes that OpenCV reads as None
+must raise with their names, and the committed fixtures must decode to their
+committed PNGs. `chip_smoke.encode_jpeg`, the scaffold that makes path V's
+frames where there is no encoder, is held to OpenCV's encoder.
 """
 
 import glob
+import importlib.util
 import io
 import os
 
@@ -25,6 +29,9 @@ from multiply_tpu_torch.utils.io import read_image, read_png, write_png
 from multiply_tpu_torch.utils.jpeg import decode_jpeg, read_jpeg
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "data", "torch_jpeg")
+_spec = importlib.util.spec_from_file_location("make_fixtures", os.path.join(FIXTURES, "make_fixtures.py"))
+make_fixtures = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(make_fixtures)
 SAMPLING = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444, "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
             "420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420, "440": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440,
             "411": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411}
@@ -131,20 +138,40 @@ def _patched(offset_from_sof, value):
     return bytes(data)
 
 
-@pytest.mark.parametrize("mode,offset,value", [
-    ("arithmetic", 1, 0xC9), ("arithmetic", 1, 0xCA), ("lossless", 1, 0xC3), ("hierarchical", 1, 0xC5),
-    ("12-bit", 4, 12),
-], ids=["arithmetic-sequential", "arithmetic-progressive", "lossless", "hierarchical", "12-bit"])
-def test_refused_modes_raise_with_their_name(mode, offset, value):
-    with pytest.raises(NotImplementedError, match=f"{mode}.*ROADMAP"):
-        decode_jpeg(_patched(offset, value))
+def _lossless(**kw):
+    return make_fixtures.write_lossless(_image(9, 13, 0), 1, **kw)
+
+
+def _with_jfif(data: bytes) -> bytes:
+    return data[:2] + make_fixtures.segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00") + data[2:]
+
+
+REFUSED = {
+    "hierarchical": lambda: _patched(1, 0xC5),
+    "12-bit": lambda: _patched(4, 12),
+    "lossless arithmetic": lambda: _lossless().replace(b"\xff\xc3", b"\xff\xcb", 1),
+    "lossless 12-bit": lambda: make_fixtures.write_lossless(_image(9, 13, 0).astype(np.int64) * 16, 1, precision=12),
+    "lossless YCbCr": lambda: _with_jfif(_lossless()),
+    "lossless greyscale": lambda: make_fixtures.write_lossless(_image(9, 13, 0)[..., :1], 1),
+}
+
+
+@pytest.mark.parametrize("mode", list(REFUSED))
+def test_refused_modes_raise_with_their_name(mode):
+    """Each mode that `cv2.imread` reads as None (the JAX chain then fails on
+    indexing None) raises, naming itself and OpenCV."""
+    data = REFUSED[mode]()
+    assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
+    with pytest.raises(NotImplementedError, match=f"{mode}.*OpenCV.*reads none"):
+        decode_jpeg(data)
 
 
 def test_cmyk_is_refused_and_garbage_is_malformed():
+    """(Named from when CMYK was refused.) Pillow's CMYK file decodes to
+    OpenCV's pixels; garbage is malformed."""
     bio = io.BytesIO()
     PIL.Image.fromarray(_image(16, 16, 0)).convert("CMYK").save(bio, "JPEG")
-    with pytest.raises(NotImplementedError, match="CMYK.*ROADMAP"):
-        decode_jpeg(bio.getvalue())
+    _assert_same(bio.getvalue())
     ok, buf = cv2.imencode(".jpg", _image(16, 16, 0))
     bad_dc = bytearray(buf.tobytes())
     dht = bad_dc.find(b"\xff\xc4")
@@ -153,6 +180,46 @@ def test_cmyk_is_refused_and_garbage_is_malformed():
     for data in (b"", b"\xff\xd8\xff\xd9", b"\x89PNG\r\n\x1a\n", bytes(bad_dc)):
         with pytest.raises(ValueError, match="malformed"):
             decode_jpeg(data)
+
+
+def _cmyk(h, w, seed, factors, coding, transform, progressive=False, restart=0):
+    c, m, y, k = make_fixtures.cmyk_planes(h, w, seed)
+    planes = [*make_fixtures.ycc(255 - np.stack([c, m, y], -1)), k] if transform == 2 else [c, m, y, k]
+    return make_fixtures.write_jpeg(planes, factors, w, h, coding=coding, progressive=progressive, restart=restart,
+                                    adobe=transform, jfif=False)
+
+
+ENCODED = {
+    **{f"arithmetic-{name}-{'progressive' if prog else 'sequential'}-rst{rst}": (
+        lambda f=f, prog=prog, rst=rst, i=i: make_fixtures.write_jpeg(
+            make_fixtures.ycc(make_fixtures.scene(23 + i, 37 - i, i).astype(np.float64)), f, 37 - i, 23 + i,
+            coding="arithmetic", progressive=prog, restart=rst, dac=(i % 2, 1 + i % 3, 1 + 7 * i)))
+       for i, (name, f) in enumerate({"420": [(2, 2), (1, 1), (1, 1)], "444": [(1, 1)] * 3,
+                                      "422": [(2, 1), (1, 1), (1, 1)], "411": [(4, 1), (1, 1), (1, 1)]}.items())
+       for prog in (False, True) for rst in (0, 2)},
+    "arithmetic-grey-progressive": lambda: make_fixtures.write_jpeg(
+        [make_fixtures.scene(19, 21, 5)[..., 1].astype(np.float64)], [(1, 1)], 21, 19, coding="arithmetic",
+        progressive=True, restart=1),
+    **{f"{'ycck' if t == 2 else 'cmyk'}-{coding}": (lambda t=t, coding=coding: _cmyk(
+        29, 34, 7, [(2, 2), (1, 1), (1, 1), (2, 2)], coding, t, progressive=coding == "arithmetic", restart=1))
+       for t in (0, 2) for coding in ("huffman", "arithmetic")},
+    "cmyk-no-adobe-marker": lambda: _cmyk(13, 9, 8, [(1, 1)] * 4, "huffman", None),
+    **{f"lossless-predictor{p}": (lambda p=p: make_fixtures.write_lossless(make_fixtures.scene(17, 23, p), p,
+                                                                          point_transform=p % 3))
+       for p in range(1, 8)},
+    "lossless-6bit": lambda: make_fixtures.write_lossless(make_fixtures.scene(11, 7, 9) >> 2, 4, precision=6),
+    "lossless-cmyk": lambda: make_fixtures.write_lossless(
+        np.stack(make_fixtures.cmyk_planes(13, 17, 10), -1).astype(np.uint8), 6),
+}
+
+
+@pytest.mark.parametrize("name", list(ENCODED))
+def test_encoded_modes_decode_bit_for_bit(name):
+    """The modes that neither OpenCV nor Pillow writes, from the fixture
+    script's encoder: arithmetic coding (sequential and progressive, every
+    sampling, restarts, conditioning tables through DAC), CMYK and YCCK,
+    lossless with each predictor and point transform."""
+    _assert_same(ENCODED[name]())
 
 
 def test_read_image_tells_the_format_by_its_signature(tmp_path):
@@ -169,13 +236,28 @@ def test_read_image_tells_the_format_by_its_signature(tmp_path):
         read_image(str(tmp_path / "c.jpg"))
 
 
-def test_committed_fixtures_decode_to_their_opencv_pixels():
-    files = sorted(glob.glob(os.path.join(FIXTURES, "*.jpg")))
-    assert len(files) == 10
-    for path in files:
-        want = read_png(path[:-4] + ".png")
-        assert np.array_equal(read_jpeg(path), want), path
-        assert np.array_equal(want, cv2.imread(path, cv2.IMREAD_COLOR)[:, :, ::-1]), path
+COMMITTED = sorted(os.path.basename(p)[:-4] for p in glob.glob(os.path.join(FIXTURES, "*.jpg")))
+
+
+def test_the_committed_fixtures_are_all_there():
+    assert COMMITTED == sorted(["sampling_444", "sampling_422", "sampling_420", "sampling_440", "sampling_411",
+                                "progressive", "restart", "gray", "exif6", "frame_540x720", "cmyk", "ycck",
+                                "arith_sequential", "arith_progressive_restart", "bits12", "lossless"])
+
+
+@pytest.mark.parametrize("name", COMMITTED)
+def test_committed_fixtures_decode_to_their_opencv_pixels(name):
+    """Each fixture against its PNG of OpenCV's pixels; a fixture without a
+    PNG is one that OpenCV reads as None, and the port refuses it."""
+    path = os.path.join(FIXTURES, f"{name}.jpg")
+    if not os.path.exists(path[:-4] + ".png"):
+        assert cv2.imread(path, cv2.IMREAD_COLOR) is None
+        with pytest.raises(NotImplementedError, match="OpenCV.*reads none"):
+            read_jpeg(path)
+        return
+    want = read_png(path[:-4] + ".png")
+    assert np.array_equal(read_jpeg(path), want), path
+    assert np.array_equal(want, cv2.imread(path, cv2.IMREAD_COLOR)[:, :, ::-1]), path
 
 
 def _tables(data: bytes) -> dict:
