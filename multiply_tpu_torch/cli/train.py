@@ -9,12 +9,15 @@ dotted overrides, the sequence (the synthetic scene or a preprocessed Hi4D
 directory), per-person SMPL servers, the SAM stage and `Trainer.fit`. With a
 `sam_checkpoint` file (the official `sam_vit_h_4b8939.pth`, loaded strictly)
 the SAM stage is `SamSegmenter` over the frames; without one it is
-`PriorSegmenter`. `--profile N` traces N training steps after two warm ones,
-writes `<run_dir>/profile/summary.json` and exits. Run artifacts
-(checkpoints, stage_* files, validation renders, metrics.jsonl) go to
-outputs/<exp>/<run>/ unless --run_dir says otherwise. Runs on the card;
-`--device cpu` is for tests at tiny widths (`--set` them). A synthetic
-sequence ignores `dataset.train.ratio_uncertain`, as the JAX entry does.
+`PriorSegmenter`. `--profile N` traces N training steps of `train_epoch`
+(producer, queue, the configured modes) after two warm ones, prints the
+card's time by category and the program's spans and counters, writes
+`<run_dir>/profile/` (`trace.json`, `summary.json`, `spans.json`) and
+exits. Run artifacts (checkpoints, stage_* files, validation renders,
+metrics.jsonl) go to outputs/<exp>/<run>/ unless --run_dir says otherwise.
+Runs on the card; `--device cpu` is for tests at tiny widths (`--set` them).
+A synthetic sequence ignores `dataset.train.ratio_uncertain`, as the JAX
+entry does.
 
 `--devices N` (or `devices: N` in the config, read as the JAX entry reads
 them) splits each step's rays over N processes (`parallel/sharding.py`): rank
@@ -126,7 +129,7 @@ def parse_args(argv=None):
     ap.add_argument("--devices", type=int, default=0, metavar="N",
                     help="split each step's rays over N processes, one device each (cuda:0..N-1)")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
-                    help="trace N training steps, write <run_dir>/profile/summary.json and exit")
+                    help="trace N training steps, write <run_dir>/profile/ and exit")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VAL", dest="sets",
                     help="dotted config override, e.g. --set model.stage_overlap=true (YAML value; repeatable)")
     ap.add_argument("--device", default="cuda", help="torch device (cpu for tests)")

@@ -15,6 +15,8 @@ import numpy as np
 import scipy.sparse
 import scipy.sparse.csgraph
 
+from ..utils.profiling import count
+
 
 def generate_mesh(
     sdf_fn: Callable[[np.ndarray], np.ndarray],  # (N, 3) -> (N,) canonical SDF
@@ -38,6 +40,7 @@ def generate_mesh(
         pts_int = mise.query()
         if len(pts_int) == 0:
             break
+        count("mesh.rounds")
         # grid -> world: a centred cube of side gt_scale
         pts = (pts_int.astype(np.float32) / R - 0.5) * gt_scale + gt_center
         vals = [np.asarray(sdf_fn(pts[s : s + point_batch])) for s in range(0, len(pts), point_batch)]

@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling
+
 
 class AdamState(NamedTuple):
     mu: dict  # name -> first moment
@@ -54,6 +56,7 @@ def adam_update(
             m_hat = m / (1 - b1**c)
             v_hat = v / (1 - b2**c)
             p.sub_(lr * lr_factors[k] * m_hat / (torch.sqrt(v_hat) + eps))
+    profiling.count("adam.leaves", sum(bool(active[k]) for k in params))
     return AdamState(mu=mu, nu=nu, count=count)
 
 

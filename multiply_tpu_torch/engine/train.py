@@ -26,6 +26,7 @@ from ..body.server import smpl_server_forward
 from ..models.loss import LossConfig, total_loss
 from ..models.renderer import MultiplyRenderer, PersonState, RenderInputs
 from ..utils.cameras import get_camera_params
+from ..utils.profiling import count, span
 from .optim import AdamState, adam_init, adam_update, multistep_lr
 from .pose_losses import (
     draw_interpenetration_samples,
@@ -82,6 +83,13 @@ class PoseLossBatch:
     uv: torch.Tensor  # (M, 2) sampled pixels
     sam_probs: torch.Tensor  # (M, P) sigmoid SAM probabilities at those pixels
     scale_to_full: torch.Tensor | float  # n_valid_pixels / M (rescales the summed loss)
+
+
+def _host_wait(flag: torch.Tensor) -> bool:
+    """`bool(flag)`: the host waits here for the card to reach it."""
+    with span("step.sync"):
+        count("step.host_waits")
+        return bool(flag)
 
 
 def make_lr_factors(params: dict, body_factor: float = 0.1) -> dict:
@@ -173,45 +181,49 @@ class TrainStep:
         of the rays and the loss and logs are this rank's share of the whole
         batch's; the pose-only terms, computed whole on every rank from the
         replicated `pose_batch`, are weighted 1/W."""
-        if noise is None:
-            noise = self.draw_noise(batch, pose_batch, generator)
-        body, idx = ts.body, batch.frame_idx
-        thetas = body.thetas(idx)  # (P, 72)
-        inputs = RenderInputs(
-            uv=batch.uv, pose=batch.pose, intrinsics=batch.intrinsics,
-            scale=batch.smpl_scale, transl=body.transl[:, idx], thetas=thetas,
-            betas=body.betas[:, 0], frame_idx=idx, epoch=ts.epoch,
-        )
-        out = ts.model.render(self.state, inputs, train=True, noise=noise)
-        if ts.epoch > 250:
-            out["temporal_loss"] = ((body.thetas(max(idx - 1, 0)) - thetas) ** 2).mean()
-        loss, logs = total_loss(self.loss_cfg, out, batch.rgb, ts.epoch, sam_mask_logits=batch.sam_mask,
-                                share=share)
+        with span("step.forward"):
+            if noise is None:
+                noise = self.draw_noise(batch, pose_batch, generator)
+            body, idx = ts.body, batch.frame_idx
+            thetas = body.thetas(idx)  # (P, 72)
+            inputs = RenderInputs(
+                uv=batch.uv, pose=batch.pose, intrinsics=batch.intrinsics,
+                scale=batch.smpl_scale, transl=body.transl[:, idx], thetas=thetas,
+                betas=body.betas[:, 0], frame_idx=idx, epoch=ts.epoch,
+            )
+            out = ts.model.render(self.state, inputs, train=True, noise=noise)
+            if ts.epoch > 250:
+                out["temporal_loss"] = ((body.thetas(max(idx - 1, 0)) - thetas) ** 2).mean()
+            with span("loss.total"):
+                loss, logs = total_loss(self.loss_cfg, out, batch.rgb, ts.epoch, sam_mask_logits=batch.sam_mask,
+                                        share=share)
 
-        zero = torch.zeros((), device=loss.device)
-        d_w, s_w, i_w = zero, zero, zero
-        if pose_batch is not None:
-            d_raw, s_raw, i_raw = self._pose_step_losses(ts, batch, pose_batch, noise["interp_idx"])
-            cfg = self.loss_cfg
-            decay = 1.0 - min(float(cfg.depth_loss_milestone), float(ts.epoch)) / cfg.depth_loss_milestone
-            d_w = cfg.depth_order_weight * decay * d_raw
-            s_w = cfg.silhouette_weight * decay * s_raw
-            i_w = cfg.interpenetration_weight * decay * i_raw
-            if share is not None:
-                d_w, s_w, i_w = d_w / share.world, s_w / share.world, i_w / share.world
-            loss = loss + d_w + s_w + i_w
-            logs["loss"] = loss
-        logs["pose_depth_order_loss"] = d_w
-        logs["pose_silhouette_loss"] = s_w
-        logs["pose_interpenetration_loss"] = i_w
-        return loss, logs
+            zero = torch.zeros((), device=loss.device)
+            d_w, s_w, i_w = zero, zero, zero
+            if pose_batch is not None:
+                with span("step.pose_losses"):
+                    d_raw, s_raw, i_raw = self._pose_step_losses(ts, batch, pose_batch, noise["interp_idx"])
+                cfg = self.loss_cfg
+                decay = 1.0 - min(float(cfg.depth_loss_milestone), float(ts.epoch)) / cfg.depth_loss_milestone
+                d_w = cfg.depth_order_weight * decay * d_raw
+                s_w = cfg.silhouette_weight * decay * s_raw
+                i_w = cfg.interpenetration_weight * decay * i_raw
+                if share is not None:
+                    d_w, s_w, i_w = d_w / share.world, s_w / share.world, i_w / share.world
+                loss = loss + d_w + s_w + i_w
+                logs["loss"] = loss
+            logs["pose_depth_order_loss"] = d_w
+            logs["pose_silhouette_loss"] = s_w
+            logs["pose_interpenetration_loss"] = i_w
+            return loss, logs
 
     def loss_and_grads(self, ts: TrainState, batch: Batch, noise=None, generator=None, pose_batch=None,
                        share=None):
         """(loss, logs, grads): grads by parameter name, zeros where unused."""
         params = ts.params()
         loss, logs = self.forward_loss(ts, batch, noise, generator, pose_batch, share)
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        with span("step.backward"):
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         grads = {
             k: torch.zeros_like(p) if g is None else g
             for (k, p), g in zip(params.items(), grads)
@@ -228,21 +240,23 @@ class TrainStep:
     def update(self, ts: TrainState, mode: int, loss, logs: dict, grads: dict):
         """The masked Adam update of a step in `mode` from its loss and
         gradients, or none at all where either is non-finite; returns (ts, logs)."""
-        finite = torch.isfinite(loss) & torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
+        with span("step.finite"):
+            finite = torch.isfinite(loss) & torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
         lr_now = multistep_lr(self.lr, ts.epoch, self.milestones, self.gamma)
-        if bool(finite):  # otherwise drop the whole update, optimizer state included
-            params = ts.params()
-            masks = _active_masks(params, mode)
-            joint = {k: a and mode != MODE_POSE_ONLY for k, a in masks.items()}
-            ts.opt_joint = adam_update(
-                grads, ts.opt_joint, params, lr_now, make_lr_factors(params), joint
-            )
-            body = {k: p for k, p in params.items() if k.startswith("body.")}
-            pose = {k: masks[k] and mode == MODE_POSE_ONLY for k in body}
-            ts.opt_pose = adam_update(
-                grads, ts.opt_pose, body, lr_now, {k: 0.1 for k in body}, pose
-            )
+        if _host_wait(finite):  # otherwise drop the whole update, optimizer state included
+            with span("step.update"):
+                params = ts.params()
+                masks = _active_masks(params, mode)
+                joint = {k: a and mode != MODE_POSE_ONLY for k, a in masks.items()}
+                ts.opt_joint = adam_update(
+                    grads, ts.opt_joint, params, lr_now, make_lr_factors(params), joint
+                )
+                body = {k: p for k, p in params.items() if k.startswith("body.")}
+                pose = {k: masks[k] and mode == MODE_POSE_ONLY for k in body}
+                ts.opt_pose = adam_update(
+                    grads, ts.opt_pose, body, lr_now, {k: 0.1 for k in body}, pose
+                )
         logs = {k: v.detach() if torch.is_tensor(v) else v for k, v in logs.items()}
         logs["lr"] = lr_now
-        logs["update_skipped"] = 0.0 if bool(finite) else 1.0
+        logs["update_skipped"] = 0.0 if _host_wait(finite) else 1.0
         return ts, logs

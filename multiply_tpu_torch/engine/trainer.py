@@ -60,6 +60,7 @@ from ..ops.mesh_ops import sdf_grid
 from ..utils.cameras import get_camera_params
 from ..utils.io import write_png
 from ..utils.logging import MetricsLogger
+from ..utils.profiling import count, new_id, set_id, span
 from .instance_masks import project_depth, run_instance_mask_stage
 from .mesh_export import generate_mesh, save_ply
 from .optim import AdamState, adam_init, adam_update
@@ -311,18 +312,21 @@ class Trainer:
         cond = cond[None]
 
         def sdf(pts: np.ndarray) -> np.ndarray:
-            x = torch.as_tensor(np.asarray(pts, np.float32), device=self.device)[None]
-            with self._sdf_lock, torch.no_grad():
-                out = self._sdf_renderer._implicit(x, cond, betas, bundle=bundle)
-            return out[0, :, 0].cpu().numpy()
+            with span("mesh.sdf"):
+                count("mesh.sdf_points", len(pts))
+                x = torch.as_tensor(np.asarray(pts, np.float32), device=self.device)[None]
+                with self._sdf_lock, torch.no_grad():
+                    out = self._sdf_renderer._implicit(x, cond, betas, bundle=bundle)
+                return out[0, :, 0].cpu().numpy()
 
         return sdf
 
     def _canonical_mesh(self, p: int, cond_pose=None, params=None, res_up: int | None = None):
-        return generate_mesh(
-            self.canonical_sdf_fn(p, cond_pose, params=params), self.servers[p].verts_c.cpu().numpy(),
-            res_up=self.mesh_res_up if res_up is None else res_up,
-        )
+        with span("mesh.extract"):
+            return generate_mesh(
+                self.canonical_sdf_fn(p, cond_pose, params=params), self.servers[p].verts_c.cpu().numpy(),
+                res_up=self.mesh_res_up if res_up is None else res_up,
+            )
 
     def extract_canonical_meshes(self, res_up: int | None = None, cond_pose_per_person=None, params=None):
         return [
@@ -521,20 +525,23 @@ class Trainer:
         """One optimisation step on the whole batch; returns (ts, logs). Over
         a ray group, rank 0 draws the whole batch's noise, sends the step to
         the other ranks, and each rank steps on its share of the rays."""
-        if self.group is None:
-            return self.builder.step(self.ts, batch, generator=self.gen, pose_batch=pose_batch)
-        noise = self.builder.draw_noise(batch, pose_batch, self.gen)
-        batch, pose_batch, noise = self._command("step", (batch, pose_batch, noise))
-        return self._sharded_step(self.ts, batch, noise=noise, pose_batch=pose_batch)
+        with span("step"):
+            if self.group is None:
+                return self.builder.step(self.ts, batch, generator=self.gen, pose_batch=pose_batch)
+            noise = self.builder.draw_noise(batch, pose_batch, self.gen)
+            batch, pose_batch, noise = self._command("step", (batch, pose_batch, noise))
+            return self._sharded_step(self.ts, batch, noise=noise, pose_batch=pose_batch)
 
     # ------------------------------------------------------------------
     # training loop
     # ------------------------------------------------------------------
 
-    def train_epoch(self) -> dict:
-        """One pass over the shuffled frames. A producer thread makes the next
-        step's whole batch (item draw, pose-loss meshes, host-to-card copies)
-        while the main thread steps."""
+    def train_epoch(self, max_steps: int | None = None) -> dict:
+        """One pass over the shuffled frames (the first `max_steps` of them,
+        if given). A producer thread makes the next step's whole batch (item
+        draw, pose-loss meshes, host-to-card copies) while the main thread
+        steps. Each batch gets a number of its own (`utils/profiling.new_id`),
+        the id of its spans and counters in the producer and the main thread."""
         order = self.rng.permutation(self.num_frames)
         # separate generators, so that a mode flip does not shift the item draws
         item_rng = np.random.default_rng(self.rng.integers(0, 2**31))
@@ -545,11 +552,20 @@ class Trainer:
 
         def producer():
             try:
-                for i in order:
-                    item = self.seq.get_train_item(int(i), item_rng)
+                for i in order[:max_steps]:
+                    batch_id = new_id()
+                    set_id(batch_id)
+                    with span("producer.item"):
+                        item = self.seq.get_train_item(int(i), item_rng)
                     mode = self._select_mode(item.get("is_certain", True), "sam_mask" in item)
-                    pose_batch = self.pose_loss_batch(int(i), pose_rng, params=snap) if mode == MODE_POSE_ONLY else None
-                    q.put((mode, self.make_batch(item, mode), pose_batch))
+                    pose_batch = None
+                    if mode == MODE_POSE_ONLY:
+                        with span("producer.pose_batch"):
+                            pose_batch = self.pose_loss_batch(int(i), pose_rng, params=snap)
+                    with span("producer.h2d"):
+                        batch = self.make_batch(item, mode)
+                    with span("producer.put_wait"):
+                        q.put((batch_id, mode, batch, pose_batch))
                 q.put(None)
             except BaseException as e:  # raised again in the main thread
                 q.put(e)
@@ -560,16 +576,23 @@ class Trainer:
         mode_counts = {MODE_JOINT: 0, MODE_POSE_ONLY: 0, MODE_DELAYED_POSE: 0}
         self.ts.epoch = self.epoch
         try:
-            while True:
-                got = q.get()
-                if got is None:
-                    break
-                if isinstance(got, BaseException):
-                    raise got
-                mode, batch, pose_batch = got
-                mode_counts[mode] += 1
-                self.ts, logs = self.train_step(batch, pose_batch)
+            with span("epoch"):
+                while True:
+                    with span("loop.queue_get"):
+                        empty = q.empty()
+                        got = q.get()
+                        set_id(got[0] if isinstance(got, tuple) else None)
+                    if got is None:
+                        break
+                    if isinstance(got, BaseException):
+                        raise got
+                    if empty:
+                        count("loop.queue_empty")
+                    _, mode, batch, pose_batch = got
+                    mode_counts[mode] += 1
+                    self.ts, logs = self.train_step(batch, pose_batch)
         finally:
+            set_id(None)
             while t.is_alive():  # let a blocked producer finish before leaving
                 try:
                     q.get(timeout=0.1)

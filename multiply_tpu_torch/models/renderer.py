@@ -29,6 +29,7 @@ from ..ops.grid_cuda import grid_trilinear
 from ..ops.mesh_ops import ray_aabb_range, sdf_grid
 from ..ops.skinning import covector_apply_rows, rotation_inverse_rows
 from ..utils.cameras import get_camera_params
+from ..utils.profiling import count, span
 from .deformer import SMPLDeformer
 from ..ops.embedders import embedding_dim, positional_encoding
 from .networks import COND_DIMS, BetaEncoder, ImplicitNet, OffsetHead, RenderingNet
@@ -268,6 +269,7 @@ class MultiplyRenderer(nn.Module):
         bundle16 = self.implicit_bundle(torch.bfloat16) if self.sampler_bf16 else None
 
         def sdf_only(pts):
+            count("sampler.points", pts.shape[:-1].numel())
             with torch.no_grad():
                 x_c, outlier = state.deformer.inverse(pts, tfs_ng, verts_ng)
                 sdf = self._implicit(x_c, cond_ng, betas, bundle=bundle16)[..., 0].float()
@@ -281,11 +283,12 @@ class MultiplyRenderer(nn.Module):
                 torch.where(hit, t_near, 0.0).detach(),
                 torch.where(hit, t_far, 2.0 * self.scene_sphere).detach(),
             )
-        samp = error_bound_sample(
-            self.sampler_cfg, sdf_only, ray_o, ray_d, beta0, self.P,
-            noise={"u": noise["sampler_u"], "perm": noise["sampler_perm"]} if train else None,
-            ray_range=ray_range,
-        )
+        with span("render.sampler"):
+            samp = error_bound_sample(
+                self.sampler_cfg, sdf_only, ray_o, ray_d, beta0, self.P,
+                noise={"u": noise["sampler_u"], "perm": noise["sampler_perm"]} if train else None,
+                ray_range=ray_range,
+            )
         z_all = samp["z_vals"].detach()  # (P, R, S+1)
         z_vals, z_max = z_all[..., :-1], z_all[..., -1]
         S = z_vals.shape[-1]

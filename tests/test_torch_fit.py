@@ -228,13 +228,23 @@ def test_two_cpu_ranks_stay_equal_across_the_epoch_20_stages(tmp_path):
 
 
 def test_train_entry_profiles_steps_and_exits(tmp_path):
-    """`--profile 2`: two warm steps, two traced, the table written to
-    <run_dir>/profile/summary.json, and no training run after it."""
+    """`--profile 2`: two warm steps, two traced, both through
+    `train_epoch`, the tables written to <run_dir>/profile/summary.json and
+    the traced steps' spans to spans.json, and no training run after it."""
     trainer = cli_train.main(argv(tmp_path, "--profile", "2"))
     with open(os.path.join(tmp_path, "profile", "summary.json")) as f:
         summary = json.load(f)
     assert summary["steps"] == 2 and summary["wall_s"] > 0 and isinstance(summary["rows"], list)
     assert os.path.exists(os.path.join(tmp_path, "profile", "trace.json"))
+    rows = {r["name"]: r for r in summary["spans"]}
+    assert rows["step"]["count"] == 2 and rows["producer.item"]["count"] >= 2
+    assert 0 <= rows["step"]["self_ms"] < rows["step"]["total_ms"]
+    assert {r["name"]: r["per_step"] for r in summary["counters"]}["step.host_waits"] == 2
+    with open(os.path.join(tmp_path, "profile", "spans.json")) as f:
+        spans = json.load(f)
+    steps = [s for s in spans["spans"] if s["name"] == "step"]
+    assert len(steps) == 2 and len({s["id"] for s in steps}) == 2
+    assert {c["id"] for c in spans["counters"]} == {s["id"] for s in steps}
     assert trainer.epoch == 0 and not os.path.exists(os.path.join(tmp_path, "checkpoints"))
 
 
