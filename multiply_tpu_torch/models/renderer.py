@@ -13,10 +13,12 @@ every network layer, the sampler and both kernels run once for all persons.
 
 Training noise is explicit: `render(..., noise=...)` takes the dict that
 `draw_noise` makes, so a test can hand in the numbers another framework drew.
+On the card the sampler replays as CUDA graphs (`sampler_graph.py`).
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Any, NamedTuple
 
@@ -29,11 +31,12 @@ from ..ops.grid_cuda import grid_trilinear
 from ..ops.mesh_ops import ray_aabb_range, sdf_grid
 from ..ops.skinning import covector_apply_rows, rotation_inverse_rows
 from ..utils.cameras import get_camera_params
-from ..utils.profiling import count, span
+from ..utils.profiling import span
 from .deformer import SMPLDeformer
 from ..ops.embedders import embedding_dim, positional_encoding
 from .networks import COND_DIMS, BetaEncoder, ImplicitNet, OffsetHead, RenderingNet
 from .ray_sampler import SamplerConfig, error_bound_sample, uniform_z_vals
+from .sampler_graph import SamplerGraphs
 from .triplane import TriPlane, TriPlaneMulti
 
 OUTLIER_SDF = 4.0  # SDF given to KNN outliers at eval
@@ -137,6 +140,7 @@ class MultiplyRenderer(nn.Module):
         )
         beta_init = float(conf.density.params_init.get("beta", 0.1))
         self.beta = nn.Parameter(torch.tensor([beta_init], device=device))
+        self.sampler_graphs = SamplerGraphs()  # the sampler's CUDA graphs, by input signature
 
     # ------------------------------------------------------------------
     # setup
@@ -247,6 +251,36 @@ class MultiplyRenderer(nn.Module):
             out, grad = out.detach(), grad.detach()
         return out, grad
 
+    def _implicit_leaves(self) -> list[torch.Tensor]:
+        """The tensors that `_implicit` reads in place: its modules' parameters and buffers."""
+        modules = [getattr(self, name) for name in IMPLICIT_MODULES if getattr(self, name) is not None]
+        return [t for m in modules for t in itertools.chain(m.parameters(), m.buffers())]
+
+    def _sampler_chain(self, inp: dict, train: bool, on_points) -> dict:
+        """The error-bound sampler over every person's SDF field, from the
+        inputs that `_person_rays` gathers (no grad) and the implicit leaves:
+        {z_vals, beta_final}. `on_points(n)` hears each evaluation's count."""
+        deformer = SMPLDeformer(inp["verts_c"], inp["weights_c"])
+        # the points stay f32 through the deformer (and its nn1 kernel); only
+        # the implicit net's leaves, cast once for all the sampler's
+        # evaluations, and its inputs go to bfloat16
+        bundle16 = self.implicit_bundle(torch.bfloat16) if self.sampler_bf16 else None
+
+        def sdf_only(pts):
+            on_points(pts.shape[:-1].numel())
+            with torch.no_grad():
+                x_c, outlier = deformer.inverse(pts, inp["tfs"], inp["verts"])
+                sdf = self._implicit(x_c, inp["cond"], inp["betas"], bundle=bundle16)[..., 0].float()
+                if not train:
+                    sdf = torch.where(outlier, OUTLIER_SDF, sdf)
+                return sdf
+
+        return error_bound_sample(
+            self.sampler_cfg, sdf_only, inp["ray_o"], inp["ray_d"], inp["beta0"], self.P,
+            noise={"u": inp["u"], "perm": inp["perm"]} if train else None,
+            ray_range=None if inp["near"] is None else (inp["near"], inp["far"]),
+        )
+
     def _person_rays(self, state: PersonState, inputs: RenderInputs, cond_vec, cond_pose,
                      ray_o, ray_d, beta0, train: bool, noise) -> dict:
         """SMPL, sampling, SDF, color and normals for all persons at once."""
@@ -261,33 +295,21 @@ class MultiplyRenderer(nn.Module):
         center, half = 0.5 * (vmax + vmin), 0.5 * (vmax - vmin) * 1.2
         t_near, t_far, hit = ray_aabb_range(ray_o, ray_d, center - half, center + half)  # (P, R)
 
-        tfs_ng, verts_ng, cond_ng = tfs.detach(), verts.detach(), cond_vec.detach()
         betas = inputs.betas
-        # the points stay f32 through the deformer (and its nn1 kernel); only
-        # the implicit net's leaves, cast once for all the sampler's
-        # evaluations, and its inputs go to bfloat16
-        bundle16 = self.implicit_bundle(torch.bfloat16) if self.sampler_bf16 else None
-
-        def sdf_only(pts):
-            count("sampler.points", pts.shape[:-1].numel())
-            with torch.no_grad():
-                x_c, outlier = state.deformer.inverse(pts, tfs_ng, verts_ng)
-                sdf = self._implicit(x_c, cond_ng, betas, bundle=bundle16)[..., 0].float()
-                if not train:
-                    sdf = torch.where(outlier, OUTLIER_SDF, sdf)
-                return sdf
-
-        ray_range = None
+        near = far = None
         if self.bbox_ray_range:  # rays that miss keep the full interval (they are masked anyway)
-            ray_range = (
-                torch.where(hit, t_near, 0.0).detach(),
-                torch.where(hit, t_far, 2.0 * self.scene_sphere).detach(),
-            )
+            near = torch.where(hit, t_near, 0.0).detach()
+            far = torch.where(hit, t_far, 2.0 * self.scene_sphere).detach()
+        sampler_inputs = {
+            "ray_o": ray_o, "ray_d": ray_d, "beta0": beta0, "near": near, "far": far,
+            "u": noise["sampler_u"] if train else None, "perm": noise["sampler_perm"] if train else None,
+            "tfs": tfs.detach(), "verts": verts.detach(), "cond": cond_vec.detach(), "betas": betas,
+            "verts_c": state.deformer.verts_c, "weights_c": state.deformer.weights_c,
+        }
         with span("render.sampler"):
-            samp = error_bound_sample(
-                self.sampler_cfg, sdf_only, ray_o, ray_d, beta0, self.P,
-                noise={"u": noise["sampler_u"], "perm": noise["sampler_perm"]} if train else None,
-                ray_range=ray_range,
+            samp = self.sampler_graphs(
+                lambda inp, on_points: self._sampler_chain(inp, train, on_points),
+                sampler_inputs, (train, self.sampler_bf16), self._implicit_leaves,
             )
         z_all = samp["z_vals"].detach()  # (P, R, S+1)
         z_vals, z_max = z_all[..., :-1], z_all[..., -1]

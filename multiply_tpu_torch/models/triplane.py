@@ -21,10 +21,12 @@ from .networks import WNDense, _lecun_normal, softplus100
 
 def _plane_features(planes: torch.Tensor, pts: torch.Tensor) -> list[torch.Tensor]:
     """planes (..., 3, C, R, R) as xy/xz/yz; pts (..., N, 3) in [-1, 1]
-    -> the three per-plane features, each (..., N, C)."""
+    -> the three per-plane features, each (..., N, C). The axes are taken by
+    slices: indexing by a list makes a tensor on the host, which a CUDA graph
+    capture refuses."""
     return [
         grid_sample_2d(planes[..., i, :, :, :], pts[..., axes])
-        for i, axes in enumerate(([0, 1], [0, 2], [1, 2]))
+        for i, axes in enumerate((slice(0, 2), slice(0, 3, 2), slice(1, 3)))
     ]
 
 
