@@ -17,11 +17,9 @@ import numpy as np
 import torch
 
 from .mesh_ops import signed_distance
-from .networks import ImplicitNet
+from .networks import COND_DIMS, ImplicitNet
 from .optim import adam_init, adam_update
 from .server import SMPLServer
-
-COND_WIDTH = {"smpl": 69, "frame": 32, "smpl_id": 133, "none": 0}
 
 
 def sample_training_points(server: SMPLServer, n: int, rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
@@ -45,7 +43,7 @@ def smpl_init_loss(net: ImplicitNet, pts: torch.Tensor, gt: torch.Tensor, pertur
                    eikonal_weight: float = 0.1):
     """(loss, l1, eikonal) of one batch; `perturb` is the eikonal points'
     offset from `pts` (0.01 x a standard normal draw)."""
-    width = COND_WIDTH[net.cond]
+    width = COND_DIMS[net.cond]  # the zero conditioning, as wide as the net takes it
     cond = torch.zeros((width,), device=pts.device) if width else None
     pred = net(pts, cond)[:, 0]
     l1 = (pred - gt).abs().mean()

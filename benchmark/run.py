@@ -7,7 +7,9 @@ The cell (`BENCHMARK.json`'s `workloads`) names a configuration
 (`benchmark/traffic/<traffic>.yaml`); each metric is read by
 `benchmark/metrics/<name>.py`. With `--trace 0` the line holds the cell's
 end-to-end metrics, with `--trace 1` its per-layer metrics, read from a
-CUDA-only profiler trace of a few of the window's steps. Either way the run
+CUDA-only profiler trace of a few of the window's steps, and the line's
+`span_join` says whether the program's spans joined that trace (`spans.py`)
+and on what clock figures, or which check broke the join. Either way the run
 ends with the check of `check.py`, whose numbers and limits are printed last
 on standard error and last in the line.
 
@@ -89,7 +91,7 @@ def measure(bench: dict, name: str, seed: int, seconds: float, trace: bool, devi
     forbidden-module check, which `main` makes at the very end)."""
     import torch
 
-    from benchmark import harness, kernels, traces
+    from benchmark import harness, kernels, spans, traces
 
     cell, entry, config, traffic = cell_parts(bench, name)
     records = harness.run_cell(cell, config, traffic, seed, seconds, trace, device, t_begin)
@@ -122,6 +124,8 @@ def measure(bench: dict, name: str, seed: int, seconds: float, trace: bool, devi
             result["breakdown"] = {"device_ops": [[k, v] for k, v in top], "idle_gaps": [[k, v] for k, v in gaps]}
         result["setup_phases"] = records["setup_phases"]
         result["diagnostics"] = read["parts"]
+        if trace:
+            result["span_join"] = spans.summary(run)
         result["checks"] = checks
         return result
     finally:
